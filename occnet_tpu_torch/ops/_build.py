@@ -1,0 +1,120 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
+shared library with a plain C interface, loaded with `ctypes`.  The build runs
+at first use (never at import), goes to `csrc/build/` (git-ignored), and is
+keyed by a hash of the sources and flags, so an edited kernel rebuilds and an
+unchanged one loads in milliseconds.  Including no PyTorch header keeps the
+build to seconds.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `Kernel.__call__` raises on a nonzero code and counts
+the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional, Sequence
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(_CSRC, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of the last build/load
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "of occnet_tpu_torch are built at first use")
+    return found
+
+
+def _sources() -> Sequence[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            digest.update(os.path.basename(s).encode() + f.read())
+    so = os.path.join(BUILD_DIR, f"liboccnet_kernels_{digest.hexdigest()[:16]}"
+                                 ".so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[s for s in srcs if s.endswith(".cu")]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        with open(so[:-3] + ".log", "w") as f:
+            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stderr[-4000:]}")
+        os.replace(tmp, so)        # atomic: a concurrent loader never sees
+    _lib = ctypes.CDLL(so)         # a half-written library
+    build_seconds = time.perf_counter() - t0
+    return _lib
+
+
+def build_log() -> str:
+    """nvcc's output (with `-Xptxas=-v` register/spill counts) of the build
+    that produced the loaded library."""
+    if _lib is None:
+        return ""
+    with open(_lib._name[:-3] + ".log") as f:
+        return f.read()
+
+
+class Kernel:
+    """One C entry point of the kernel library plus its launch count.
+
+    `launches` counts successful launches and nothing else, so a caller can
+    show that a run went through the kernel (reset it to 0 before the run).
+    """
+
+    def __init__(self, symbol: str, argtypes: Sequence):
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
+                               f"cudaError {err}")
+        self.launches += 1
+
+
+P = ctypes.c_void_p          # device pointers and the cudaStream_t
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong

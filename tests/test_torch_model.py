@@ -1,0 +1,186 @@
+"""The whole serving slice of the port against `occnet_tpu.models.detector.
+OccNet` on the CPU: a small dense (turbo) config in fp32, every parameter
+random-filled (attention weights and BN statistics included), weights moved
+across by `convert.from_jax_variables`.  Logits are held to the
+cross-implementation bound of tests/test_dense_model.py (the lift rounds
+features to bf16 on both sides, at different points)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from occnet_tpu.config import DataConfig, tiny_turbo_occ
+from occnet_tpu.data.pipeline import make_device_normalizer as jax_normalizer
+from occnet_tpu.models.dense_attention import (
+    DenseTemporalSelfAttention as JaxTSA,
+)
+from occnet_tpu.models.detector import OccNet as JaxOccNet
+from occnet_tpu_torch.convert import (
+    from_jax_variables,
+    init_jax_style_variables,
+    randomize_variables,
+)
+from occnet_tpu_torch.data.pipeline import make_device_normalizer
+from occnet_tpu_torch.models.dense_attention import DenseTemporalSelfAttention
+from occnet_tpu_torch.models.detector import OccNet
+from occnet_tpu_torch.serve import Predictor
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def small_cfg():
+    cfg = tiny_turbo_occ()
+    model = dataclasses.replace(
+        cfg.model, img_h=64, img_w=96, bev_h=10, bev_w=10, pillar_h=4,
+        embed_dims=32, out_dim=8, compute_dtype="float32",
+        encoder=dataclasses.replace(cfg.model.encoder, num_layers=2,
+                                    ffn_dim=64, num_points_in_pillar=4))
+    return dataclasses.replace(cfg, model=model)
+
+
+def ring_rig(n_cam=6):
+    ego2img = np.zeros((1, n_cam, 4, 4), np.float32)
+    base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    K = np.array([[60.0, 0, 48], [0, 60, 32], [0, 0, 1]])
+    for ci in range(n_cam):
+        a = 2 * np.pi * ci / n_cam
+        Rz = np.array([[np.cos(a), -np.sin(a), 0],
+                       [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = K @ np.linalg.inv(Rz @ base)
+        ego2img[0, ci] = m
+    return ego2img
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = small_cfg()
+    jm = JaxOccNet(cfg.model)
+    rng = np.random.RandomState(0)
+    img = rng.randn(1, 6, 64, 96, 3).astype(np.float32)
+    ego2img = ring_rig()
+    v = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(img),
+                jnp.asarray(ego2img))
+    v = randomize_variables(v, seed=1)
+    ref = jm.apply(v, jnp.asarray(img), jnp.asarray(ego2img))
+    return cfg, v, img, ego2img, ref
+
+
+def test_model_logits_match_jax(setup):
+    cfg, v, img, ego2img, ref = setup
+    model = OccNet(cfg.model)
+    model.load_state_dict(from_jax_variables(v))
+    with torch.inference_mode():
+        outs = model.eval()(torch.from_numpy(img), torch.from_numpy(ego2img))
+    occ_r, flow_r = np.asarray(ref["occ"]), np.asarray(ref["flow"])
+    assert outs["occ"].shape == occ_r.shape == (1, 10, 10, 4, 17)
+    assert outs["flow"].shape == flow_r.shape
+    assert np.abs(occ_r).max() > 0.1            # not a degenerate output
+    np.testing.assert_allclose(outs["occ"].numpy(), occ_r, rtol=0, atol=5e-2)
+    np.testing.assert_allclose(outs["flow"].numpy(), flow_r, rtol=0,
+                               atol=5e-2)
+    np.testing.assert_allclose(outs["bev_embed"].numpy(),
+                               np.asarray(ref["bev_embed"]), rtol=0,
+                               atol=5e-2)
+    agree = (outs["occ"].numpy().argmax(-1) == occ_r.argmax(-1)).mean()
+    assert agree >= 0.99, agree
+
+
+def test_temporal_self_attention_with_prev_bev(setup):
+    """The TSA module on an explicit (prev, current) queue, random weights."""
+    cfg = small_cfg().model
+    rng = np.random.RandomState(2)
+    q = rng.randn(1, 100, 32).astype(np.float32)
+    prev = rng.randn(1, 2, 100, 32).astype(np.float32)
+    pos = rng.randn(1, 100, 32).astype(np.float32)
+    jt = JaxTSA(cfg.encoder.tsa, embed_dims=32, bev_hw=(10, 10))
+    v = randomize_variables(jt.init(jax.random.PRNGKey(0), jnp.asarray(q),
+                                    jnp.asarray(prev), jnp.asarray(pos)), 3)
+    ref = jt.apply(v, jnp.asarray(q), jnp.asarray(prev), jnp.asarray(pos))
+    mod = DenseTemporalSelfAttention(cfg.encoder.tsa, 32, (10, 10))
+    mod.load_state_dict(from_jax_variables(v))
+    got = mod(torch.from_numpy(q), torch.from_numpy(prev),
+              torch.from_numpy(pos))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_init_jax_style_variables_matches_flax_tree(setup):
+    cfg, v, *_ = setup
+    ours = init_jax_style_variables(cfg, seed=0)
+
+    def shapes(tree):
+        return {"/".join(str(getattr(k, "key", k)) for k in path):
+                np.shape(x)
+                for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    assert shapes(ours) == shapes(v)
+    # and the tree loads into the port without missing or extra keys
+    OccNet(cfg.model).load_state_dict(from_jax_variables(ours))
+
+
+def test_normalizer_bitwise_equal_to_jax():
+    cfg = DataConfig()
+    rng = np.random.RandomState(3)
+    imgs = rng.randint(0, 256, (1, 2, 45, 70, 3)).astype(np.uint8)
+    ref = np.asarray(jax_normalizer(cfg)(jnp.asarray(imgs)))
+    got = make_device_normalizer(cfg)(torch.from_numpy(imgs)).numpy()
+    assert got.shape == ref.shape == (1, 2, 64, 96, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_predictor_serves_small_config(setup):
+    cfg, v, *_ = setup
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, img_h=64, img_w=96))
+    pred = Predictor(cfg, from_jax_variables(v), "cpu")
+    imgs = np.random.RandomState(4).randint(0, 256, (1, 6, 60, 90, 3),
+                                            dtype=np.uint8)
+    occ, flow, logits = pred(imgs, ring_rig(), with_logits=True)
+    assert occ.shape == (1, 10, 10, 4) and occ.dtype == torch.int64
+    assert flow.shape == (1, 10, 10, 4, 2)
+    assert torch.equal(occ, logits.argmax(-1))
+    assert torch.isfinite(logits).all()
+
+
+def test_port_imports_no_jax():
+    """Importing the port and running a tiny forward needs no jax: with
+    `import jax`/`flax` made to fail, the forward still runs, and no jax
+    module is loaded afterwards."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'jaxlib'):\n"
+        "    sys.modules[name] = None\n"
+        "import dataclasses, numpy as np, torch\n"
+        "from occnet_tpu.config import tiny_turbo_occ\n"
+        "import occnet_tpu_torch.serve as s, occnet_tpu_torch.convert as c\n"
+        "cfg = tiny_turbo_occ()\n"
+        "m = dataclasses.replace(cfg.model, img_h=32, img_w=32, bev_h=4,\n"
+        "    bev_w=4, pillar_h=2, embed_dims=16, out_dim=4, num_cams=2,\n"
+        "    compute_dtype='float32', encoder=dataclasses.replace(\n"
+        "    cfg.model.encoder, num_layers=1, ffn_dim=16,\n"
+        "    num_points_in_pillar=2))\n"
+        "cfg = dataclasses.replace(cfg, model=m)\n"
+        "p = s.Predictor(cfg, c.from_jax_variables(\n"
+        "    c.init_jax_style_variables(cfg, 0)), 'cpu')\n"
+        "e = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))\n"
+        "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
+        "assert occ.shape == (1, 4, 4, 2)\n"
+        "bad = [k for k, m in sys.modules.items() if m is not None and "
+        "k.split('.')[0] in ('jax', 'flax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print('NOJAX OK')\n")
+    env = {k: val for k, val in os.environ.items()
+           if k not in ("PYTHONPATH",)}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "NOJAX OK" in r.stdout, r.stderr[-2000:]
