@@ -1,9 +1,11 @@
 """Weight bridge between the JAX package and the port.
 
 `from_jax_variables` turns the JAX package's ``{"params", "batch_stats"}``
-tree (numpy-convertible leaves) into the port's ``state_dict``.  The port's
-module names mirror the flax scopes, so a key is the flax path joined by
-dots, with the leaf renamed and laid out for PyTorch:
+tree (numpy-convertible leaves) into the port's ``state_dict``;
+`to_jax_variables` is its inverse, so a state_dict trained by the port can
+be compared with, or handed back to, the JAX package as a flax tree.  The
+port's module names mirror the flax scopes, so a key is the flax path joined
+by dots, with the leaf renamed and laid out for PyTorch:
 
   Dense kernel (in, out)             -> Linear weight (out, in)
   Conv kernel (kh, kw, I, O)         -> Conv2d weight (O, I, kh, kw)
@@ -63,6 +65,27 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
         out[".".join(scope + [_STAT_NAMES[name]])] = torch.from_numpy(
             np.array(leaf, np.float32))
     return out
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The port's state_dict -> the JAX ``{"params", "batch_stats"}`` tree
+    of numpy float32 leaves; the inverse of `from_jax_variables`."""
+    params: dict = {}
+    stats: dict = {}
+    stat_names = {v: k for k, v in _STAT_NAMES.items()}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        *scope, name = key.split(".")
+        if name in stat_names:
+            _set(stats, "/".join(scope + [stat_names[name]]), arr)
+            continue
+        if name == "weight" and arr.ndim == 1:
+            name = "scale"
+        elif name == "weight":
+            arr = arr.transpose(np.argsort(_KERNEL_PERM[arr.ndim]))
+            name = "kernel"
+        _set(params, "/".join(scope + [name]), np.ascontiguousarray(arr))
+    return {"params": params, "batch_stats": stats}
 
 
 def _set(tree: dict, path: str, value: np.ndarray) -> None:

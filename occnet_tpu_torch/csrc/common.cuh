@@ -1,5 +1,6 @@
 // Shared device helpers for the occnet_tpu_torch kernels: vector loads of
-// bf16/fp32 channel runs into fp32 registers, and vector stores back.
+// bf16/fp32 channel runs into fp32 registers, vector stores back, and fp32
+// atomic adds of channel runs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,6 +19,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
+}
+
+// 8 consecutive fp32 channels (32 bytes, 16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float* o) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
 // 4 consecutive channels -> fp32 (8-byte bf16 or 16-byte fp32 load).
@@ -52,6 +61,37 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// 4 fp32 values -> 4 consecutive output channels.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  uint2 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// p[i] += v[i] for 8 consecutive fp32 channels (16-byte aligned), as two
+// vector atomics on sm_90 (float4 atomicAdd to global memory, CUDA >= 12.1).
+__device__ __forceinline__ void atomic_add8(float* p, const float* v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
+  float4* q = reinterpret_cast<float4*>(p);
+  atomicAdd(q, make_float4(v[0], v[1], v[2], v[3]));
+  atomicAdd(q + 1, make_float4(v[4], v[5], v[6], v[7]));
+#else
+#pragma unroll
+  for (int i = 0; i < 8; ++i) atomicAdd(p + i, v[i]);
+#endif
 }
 
 }  // namespace occ

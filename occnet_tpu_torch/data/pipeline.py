@@ -1,13 +1,44 @@
-"""On-device image normalisation (port of
-`occnet_tpu.data.pipeline.make_device_normalizer`)."""
+"""On-device image processing (port of `occnet_tpu.data.pipeline`): the
+normaliser of the serving path, and the train-time augmenter (photometric
+distortion -> normalise -> pad) of uint8 uploads.
+
+The photometric distortion is split into a draw from a `torch.Generator`
+(`photometric_draws`) and an apply from explicit draws
+(`photometric_distortion_device`), so the apply can be held against the JAX
+package's on the same draws.  Every draw stays on the device.
+"""
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from occnet_tpu.config import DataConfig
+
+Draws = Dict[str, torch.Tensor]
+
+
+def _mean_std(cfg: DataConfig):
+    mean = np.asarray(cfg.img_mean, np.float32)
+    std = np.asarray(cfg.img_std, np.float32)
+    if not cfg.to_rgb:
+        mean, std = mean[::-1].copy(), std[::-1].copy()
+    return mean, std
+
+
+def _normalize_pad(out: torch.Tensor, mean, std, size_divisor: int
+                   ) -> torch.Tensor:
+    m = torch.from_numpy(mean).to(out.device)
+    s = torch.from_numpy(std).to(out.device)
+    out = (out - m) / s
+    h, w = out.shape[-3], out.shape[-2]
+    ph, pw = (-h) % size_divisor, (-w) % size_divisor
+    if ph or pw:
+        out = F.pad(out, (0, 0, 0, pw, 0, ph))
+    return out
 
 
 def make_device_normalizer(cfg: DataConfig, size_divisor: int = 32):
@@ -16,21 +47,144 @@ def make_device_normalizer(cfg: DataConfig, size_divisor: int = 32):
     900x1600 -> 928x1600).  With ``to_rgb=False`` the BGR mean/std are
     reversed for RGB input.  Non-uint8 input is returned unchanged (already
     normalised)."""
-    mean = np.asarray(cfg.img_mean, np.float32)
-    std = np.asarray(cfg.img_std, np.float32)
-    if not cfg.to_rgb:
-        mean, std = mean[::-1].copy(), std[::-1].copy()
+    mean, std = _mean_std(cfg)
 
     def normalize(imgs: torch.Tensor) -> torch.Tensor:
         if imgs.dtype != torch.uint8:
             return imgs
-        m = torch.from_numpy(mean).to(imgs.device)
-        s = torch.from_numpy(std).to(imgs.device)
-        out = (imgs.to(torch.float32) - m) / s
-        h, w = out.shape[-3], out.shape[-2]
-        ph, pw = (-h) % size_divisor, (-w) % size_divisor
-        if ph or pw:
-            out = F.pad(out, (0, 0, 0, pw, 0, ph))
-        return out
+        return _normalize_pad(imgs.to(torch.float32), mean, std,
+                              size_divisor)
 
     return normalize
+
+
+def _rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """`pipeline._rgb_to_hsv_jax` (identical math): [0, 255] RGB -> HSV with
+    h in degrees, s and v in [0, 1]."""
+    rgb = img / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.amax(-1)
+    minc = rgb.amin(-1)
+    v = maxc
+    delta = maxc - minc
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-12), zero)
+    dz = delta.clamp(min=1e-12)
+    h = torch.where(maxc == r, torch.remainder((g - b) / dz, 6.0),
+                    torch.where(maxc == g, (b - r) / dz + 2.0,
+                                (r - g) / dz + 4.0))
+    h = torch.where(delta > 0, h * 60.0, zero)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """`pipeline._hsv_to_rgb_jax` (identical math)."""
+    h, s, v = hsv[..., 0] / 60.0, hsv[..., 1], hsv[..., 2]
+    i = torch.remainder(torch.floor(h), 6)
+    f = h - torch.floor(h)
+    p = v * (1 - s)
+    q = v * (1 - s * f)
+    t = v * (1 - s * (1 - f))
+
+    def select(choices, default):          # jnp.select: first match wins
+        out = default
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, choices[k], out)
+        return out
+
+    r = select([v, q, p, p, t], v)
+    g = select([t, v, v, q, p], p)
+    b = select([p, p, t, v, v], q)
+    return torch.stack([r, g, b], dim=-1) * 255.0
+
+
+def photometric_draws(generator: Optional[torch.Generator], n: int,
+                      brightness_delta: float = 32.0,
+                      contrast_range: Tuple[float, float] = (0.5, 1.5),
+                      saturation_range: Tuple[float, float] = (0.5, 1.5),
+                      hue_delta: float = 18.0, device=None) -> Draws:
+    """One independent draw set for each of ``n`` images, with the gates
+    and ranges of the JAX package's `photometric_distortion_device`: each
+    of brightness, contrast (before or after HSV by ``mode1``), saturation,
+    hue and the channel swap is on with probability 0.5."""
+    dev = generator.device if generator is not None else device
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=generator, device=dev)
+
+    def gate():
+        return torch.rand(n, generator=generator, device=dev) < 0.5
+
+    return {
+        "bright_on": gate(),
+        "bright": uni(-brightness_delta, brightness_delta),
+        "mode1": gate(),
+        "contrast_pre_on": gate(),
+        "contrast_pre": uni(*contrast_range),
+        "sat_on": gate(),
+        "sat": uni(*saturation_range),
+        "hue_on": gate(),
+        "hue": uni(-hue_delta, hue_delta),
+        "contrast_post_on": gate(),
+        "contrast_post": uni(*contrast_range),
+        "perm": torch.rand(n, 3, generator=generator, device=dev).argsort(-1),
+        "swap_on": gate(),
+    }
+
+
+def photometric_distortion_device(imgs: torch.Tensor, draws: Draws
+                                  ) -> torch.Tensor:
+    """imgs (..., H, W, 3) float32 RGB in [0, 255], one draw set per image
+    (``draws`` from `photometric_draws` over the flattened leading dims):
+    brightness, contrast (pre), the HSV round trip with saturation and hue,
+    contrast (post), channel swap — the JAX package's order.  The HSV round
+    trip is unconditional, as there."""
+    lead = imgs.shape[:-3]
+    img = imgs.reshape((-1,) + imgs.shape[-3:])
+
+    def per(x):                            # (N,) -> (N, 1, 1, 1)
+        return x.reshape(-1, 1, 1, 1)
+
+    def per3(x):                           # (N,) -> (N, 1, 1), HSV planes
+        return x.reshape(-1, 1, 1)
+
+    d = draws
+    img = torch.where(per(d["bright_on"]), img + per(d["bright"]), img)
+    img = torch.where(per(d["mode1"] & d["contrast_pre_on"]),
+                      img * per(d["contrast_pre"]), img)
+    hsv = _rgb_to_hsv(img)
+    s = torch.where(per3(d["sat_on"]), hsv[..., 1] * per3(d["sat"]),
+                    hsv[..., 1])
+    h = hsv[..., 0] + torch.where(per3(d["hue_on"]), per3(d["hue"]),
+                                  torch.zeros((), device=img.device))
+    h = torch.where(h > 360.0, h - 360.0, h)
+    h = torch.where(h < 0.0, h + 360.0, h)
+    img = _hsv_to_rgb(torch.stack([h, s, hsv[..., 2]], dim=-1))
+    img = torch.where(per(~d["mode1"] & d["contrast_post_on"]),
+                      img * per(d["contrast_post"]), img)
+    swapped = torch.gather(img, -1, d["perm"].reshape(-1, 1, 1, 3).expand(
+        img.shape))
+    img = torch.where(per(d["swap_on"]), swapped, img)
+    return img.reshape(lead + imgs.shape[-3:])
+
+
+def make_device_train_augmenter(cfg: DataConfig, size_divisor: int = 32,
+                                distort: bool = True):
+    """On-device train-time processing of uint8 uploads: photometric
+    distortion -> normalise -> bottom/right zero-pad, the host path's order.
+    Returns ``augment(generator, imgs)``; float inputs pass through unchanged
+    (already processed), as in the JAX package."""
+    mean, std = _mean_std(cfg)
+
+    def augment(generator: Optional[torch.Generator], imgs: torch.Tensor
+                ) -> torch.Tensor:
+        if imgs.dtype != torch.uint8:
+            return imgs
+        out = imgs.to(torch.float32)
+        if distort:
+            n = int(np.prod(out.shape[:-3]))
+            out = photometric_distortion_device(
+                out, photometric_draws(generator, n, device=out.device))
+        return _normalize_pad(out, mean, std, size_divisor)
+
+    return augment

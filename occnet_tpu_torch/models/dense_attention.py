@@ -5,7 +5,9 @@
   (level, z-anchor) slots of the camera-averaged planar lift U_bar.
 - `DenseTemporalSelfAttention` attends each BEV query over a 3x3 tap set of
   the (prev, current) BEV value grids (`ops.tsa.tap_attention`: the CUDA
-  kernel on the card, the plain version on the CPU).
+  kernels on the card, the plain versions on the CPU, forward and backward).
+
+Both apply dropout after `output_proj` in training, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from occnet_tpu.config import SCAConfig, TSAConfig
-from occnet_tpu_torch.models.layers import Linear
+from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.ops.tsa import TSA_TAPS, tap_attention
 
 
@@ -31,9 +33,11 @@ class DenseSpatialCrossAttention(nn.Module):
             embed_dims, cfg.num_heads * num_levels * num_z, dtype)
         self.output_proj = Linear(embed_dims, embed_dims, dtype)
         self.dtype = dtype
+        self.dropout = cfg.dropout
 
     def forward(self, query: torch.Tensor, lifted: torch.Tensor,
-                query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                query_pos: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query (B, Q, C), lifted (B, L, Z, Q, C) -> (B, Q, C)."""
         B, Q, C = query.shape
         H, L, Z = self.num_heads, self.num_levels, self.num_z
@@ -46,7 +50,8 @@ class DenseSpatialCrossAttention(nn.Module):
         v = lifted.reshape(B, L, Z, Q, H, C // H)
         out = torch.einsum("blzqhd,bqhlz->bqhd", v, attn)
         out = out.reshape(B, Q, C).to(self.dtype)
-        return self.output_proj(out) + residual
+        out = dropout(self.output_proj(out), self.dropout, train, generator)
+        return out + residual
 
 
 class DenseTemporalSelfAttention(nn.Module):
@@ -63,9 +68,11 @@ class DenseTemporalSelfAttention(nn.Module):
             2 * embed_dims, self.nq * cfg.num_heads * T, dtype)
         self.output_proj = Linear(embed_dims, embed_dims, dtype)
         self.dtype = dtype
+        self.dropout = cfg.dropout
 
     def forward(self, query: torch.Tensor, prev_bev: Optional[torch.Tensor],
-                query_pos: Optional[torch.Tensor]) -> torch.Tensor:
+                query_pos: Optional[torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query (B, Q, C), prev_bev (B, 2, Q, C) or None -> (B, Q, C)."""
         B, Q, C = query.shape
         H, nq, T = self.num_heads, self.nq, len(TSA_TAPS)
@@ -84,4 +91,5 @@ class DenseTemporalSelfAttention(nn.Module):
         attn6 = attn.permute(0, 1, 3, 4, 2).reshape(B, bh, bw, nq, T, H)
         out = tap_attention(vgrid.contiguous(), attn6.contiguous())
         out = out.reshape(B, Q, C).to(self.dtype)
-        return self.output_proj(out) + identity
+        out = dropout(self.output_proj(out), self.dropout, train, generator)
+        return out + identity

@@ -16,21 +16,25 @@ from occnet_tpu_torch.models.dense_attention import (
     DenseSpatialCrossAttention,
     DenseTemporalSelfAttention,
 )
-from occnet_tpu_torch.models.layers import Linear
+from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.models.norm import LayerNorm32
 
 
 class FFN(nn.Module):
-    """Linear -> ReLU -> Linear + residual (dropout is identity in eval)."""
+    """Linear -> ReLU -> Dropout -> Linear -> Dropout + residual (dropout
+    only in training)."""
 
     def __init__(self, embed_dims: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(embed_dims, ffn_dim, dtype)
         self.fc2 = Linear(ffn_dim, embed_dims, dtype)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x))) + x
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = dropout(F.relu(self.fc1(x)), self.dropout, train, generator)
+        return dropout(self.fc2(y), self.dropout, train, generator) + x
 
 
 class BEVFormerLayer(nn.Module):
@@ -44,15 +48,18 @@ class BEVFormerLayer(nn.Module):
         self.cross_attn = DenseSpatialCrossAttention(
             cfg.sca, embed_dims, num_levels, cfg.num_points_in_pillar, dtype)
         self.norm2 = LayerNorm32(embed_dims, out_dtype=dtype)
-        self.ffn = FFN(embed_dims, cfg.ffn_dim, dtype)
+        self.ffn = FFN(embed_dims, cfg.ffn_dim, dtype, cfg.ffn_dropout)
         self.norm3 = LayerNorm32(embed_dims, out_dtype=dtype)
 
     def forward(self, query: torch.Tensor, lifted: torch.Tensor,
-                bev_pos: torch.Tensor,
-                prev_bev: Optional[torch.Tensor]) -> torch.Tensor:
-        query = self.norm1(self.self_attn(query, prev_bev, bev_pos))
-        query = self.norm2(self.cross_attn(query, lifted))
-        return self.norm3(self.ffn(query))
+                bev_pos: torch.Tensor, prev_bev: Optional[torch.Tensor],
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        query = self.norm1(self.self_attn(query, prev_bev, bev_pos, train,
+                                          generator))
+        query = self.norm2(self.cross_attn(query, lifted, None, train,
+                                           generator))
+        return self.norm3(self.ffn(query, train, generator))
 
 
 class BEVFormerEncoder(nn.Module):
@@ -69,10 +76,12 @@ class BEVFormerEncoder(nn.Module):
                 cfg, embed_dims, bev_hw, num_levels, dtype))
 
     def forward(self, bev_query: torch.Tensor, lifted: torch.Tensor,
-                bev_pos: torch.Tensor) -> torch.Tensor:
+                bev_pos: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """bev_query/bev_pos (B, Q, C), lifted (B, L, Z, Q, C); single frame
-        (no history BEV: each TSA layer attends over [query, query])."""
+        (no history BEV: each TSA layer attends over [query, query]).
+        Dropout in training draws its masks from ``generator``."""
         for lid in range(self.num_layers):
-            bev_query = getattr(self, f"layer{lid}")(bev_query, lifted,
-                                                     bev_pos, None)
+            bev_query = getattr(self, f"layer{lid}")(
+                bev_query, lifted, bev_pos, None, train, generator)
         return bev_query

@@ -1,4 +1,4 @@
-"""Linear and convolution layers that compute in a given dtype.
+"""Linear and convolution layers that compute in a given dtype, and dropout.
 
 Parameters stay float32 (as the JAX package keeps them); input and weights are
 cast to the compute dtype at use, like a flax `Dense`/`Conv` built with
@@ -6,6 +6,8 @@ cast to the compute dtype at use, like a flax `Dense`/`Conv` built with
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -52,3 +54,17 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.conv3d(x.to(dt), self.weight.to(dt), None, 1, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: in training keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate); the mask is drawn from
+    ``generator`` (on x's device), so a train step's masks follow its seed.
+    Identity outside training or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))

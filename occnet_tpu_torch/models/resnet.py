@@ -1,14 +1,20 @@
-"""ResNet-50/101 image trunk, eval path (port of `occnet_tpu/models/resnet.py`).
+"""ResNet-50/101 image trunk (port of `occnet_tpu/models/resnet.py`).
 
-"pytorch style" bottlenecks (stride on the 3x3 conv), `FrozenBatchNorm`
-(running statistics always, folded into one multiply-add in the compute
-dtype), explicit symmetric padding: 7x7/2 pad 3 stem, 3/2 pad 1 max pool with
--inf padding.  Convolutions are cuDNN (`F.conv2d`): the JAX package leaves
-them to XLA, outside any Pallas kernel.  Tensors are NCHW inside.
+"pytorch style" bottlenecks (stride on the 3x3 conv), explicit symmetric
+padding: 7x7/2 pad 3 stem, 3/2 pad 1 max pool with -inf padding.  The norm is
+`FrozenBatchNorm` (running statistics always, `norm_eval=True`) or
+`TrainableBatchNorm` (batch statistics in training, `norm_eval=False`), both
+folded into one multiply-add in the compute dtype.  `frozen_stages` runs the
+stem and stages <= frozen_stages under `torch.no_grad()`, the counterpart of
+the JAX package's `stop_gradient` (their parameters get no gradient and their
+activations stay out of the autograd graph).  Convolutions are cuDNN
+(`F.conv2d`): the JAX package leaves them to XLA, outside any Pallas kernel.
+Tensors are NCHW inside.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import torch
@@ -36,38 +42,66 @@ class FrozenBatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (N, C, H, W)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # x (N, C, H, W); ``train`` is ignored: the statistics are fixed
         inv = torch.rsqrt(self.running_var + self.eps)
         mul = (self.weight * inv).to(self.dtype)
         add = (self.bias - self.running_mean * self.weight * inv).to(self.dtype)
         return x * mul[:, None, None] + add[:, None, None]
 
 
+class TrainableBatchNorm(FrozenBatchNorm):
+    """BatchNorm with the names of `FrozenBatchNorm` (`norm_eval=False`): in
+    training it normalises with the fp32 batch mean and biased variance
+    (two-pass, `jnp.var`) over (N, H, W) and updates the running statistics
+    with torch momentum 0.1 from those same biased statistics (this is not
+    `F.batch_norm`, whose running variance is unbiased); in eval it uses the
+    running statistics."""
+
+    momentum = 0.1
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+        inv = torch.rsqrt(var + self.eps)
+        mul = (self.weight * inv).to(self.dtype)
+        add = (self.bias - mean * self.weight * inv).to(self.dtype)
+        return x * mul[:, None, None] + add[:, None, None]
+
+
 class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, mid: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm_eval: bool = True):
         super().__init__()
         out_ch = mid * 4
+        bn = FrozenBatchNorm if norm_eval else TrainableBatchNorm
         self.conv1 = Conv2d(in_ch, mid, 1, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(mid, dtype=dtype)
+        self.bn1 = bn(mid, dtype=dtype)
         self.conv2 = Conv2d(mid, mid, 3, stride=stride, bias=False,
                             dtype=dtype)
-        self.bn2 = FrozenBatchNorm(mid, dtype=dtype)
+        self.bn2 = bn(mid, dtype=dtype)
         self.conv3 = Conv2d(mid, out_ch, 1, bias=False, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out_ch, dtype=dtype)
+        self.bn3 = bn(out_ch, dtype=dtype)
         self.has_downsample = in_ch != out_ch or stride != 1
         if self.has_downsample:
             self.downsample_conv = Conv2d(in_ch, out_ch, 1, stride=stride,
                                           bias=False, dtype=dtype)
-            self.downsample_bn = FrozenBatchNorm(out_ch, dtype=dtype)
+            self.downsample_bn = bn(out_ch, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         identity = x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
         if self.has_downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
+            identity = self.downsample_bn(self.downsample_conv(x), train)
         return F.relu(y + identity)
 
 
@@ -80,11 +114,14 @@ class ResNet(nn.Module):
     """Returns the feature maps named by out_indices, NCHW."""
 
     def __init__(self, depth: int = 50, out_indices: Tuple[int, ...] = (1, 2, 3),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, frozen_stages: int = 1,
+                 norm_eval: bool = True):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
         self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
+        self.bn1 = (FrozenBatchNorm if norm_eval else TrainableBatchNorm)(
+            64, dtype=dtype)
         self.stages: List[List[str]] = []
         in_ch, mid = 64, 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
@@ -92,19 +129,28 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"layer{stage + 1}_{b}"
-                self.add_module(name, Bottleneck(in_ch, mid, stride, dtype))
+                self.add_module(name, Bottleneck(in_ch, mid, stride, dtype,
+                                                 norm_eval))
                 names.append(name)
                 in_ch = mid * 4
             self.stages.append(names)
             mid *= 2
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+    def _frozen(self, stage: int):
+        """no_grad for the stem (stage -1) and stages < frozen_stages."""
+        return (torch.no_grad() if stage < self.frozen_stages
+                else contextlib.nullcontext())
+
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> List[torch.Tensor]:
+        with self._frozen(-1):
+            x = F.relu(self.bn1(self.conv1(x), train))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for stage, names in enumerate(self.stages):
-            for name in names:
-                x = getattr(self, name)(x)
+            with self._frozen(stage):
+                for name in names:
+                    x = getattr(self, name)(x, train)
             if stage in self.out_indices:
                 outs.append(x)
         return outs

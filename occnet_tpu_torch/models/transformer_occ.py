@@ -7,7 +7,7 @@ Output grids are (B, X, Y, Z, .) like the JAX package.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,9 +19,14 @@ from occnet_tpu_torch.models.layers import Conv3d, Linear
 from occnet_tpu_torch.ops.planar_lift import lift_and_average
 
 
-class BatchNorm3dEval(nn.Module):
-    """Eval-mode BatchNorm over dim 1 in fp32, flax `BatchNorm` order:
-    ((x - mean) * (rsqrt(var + eps) * scale)) + bias."""
+class BatchNorm3d(nn.Module):
+    """BatchNorm over dim 1 in fp32 with flax `BatchNorm` semantics
+    (momentum 0.9): ((x - mean) * (rsqrt(var + eps) * scale)) + bias, with
+    the running statistics in eval and, in training, the batch mean and the
+    biased variance E[x^2] - E[x]^2 (flax's fast variance, clipped at 0),
+    the running statistics becoming 0.9 * running + 0.1 * batch."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -31,25 +36,36 @@ class BatchNorm3dEval(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (-1,) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.reshape(shape)) * mul.reshape(shape)
+        xf = x.float()
+        if train:
+            dims = (0,) + tuple(range(2, x.ndim))
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
         return y + self.bias.reshape(shape)
 
 
 class ConvBNReLU3D(nn.Module):
-    """Conv3d(3x3x3, no bias) + BatchNorm3d (eval) + ReLU on NCDHW."""
+    """Conv3d(3x3x3, no bias) + BatchNorm3d + ReLU on NCDHW."""
 
     def __init__(self, in_ch: int, features: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv3d(in_ch, features, dtype)
-        self.bn = BatchNorm3dEval(features)
+        self.bn = BatchNorm3d(features)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x))).to(self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x), train)).to(self.dtype)
 
 
 class MLPHead(nn.Module):
@@ -100,7 +116,9 @@ class TransformerOcc(nn.Module):
 
     def get_bev_features(self, mlvl_feats: Sequence[torch.Tensor],
                          bev_queries: torch.Tensor, bev_pos: torch.Tensor,
-                         ego2img: torch.Tensor) -> torch.Tensor:
+                         ego2img: torch.Tensor, train: bool = False,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         """Shared value projection on the camera maps (it commutes with the
         channel-linear lift), the lift, then the encoder.  -> (B, Q, C)."""
         c = self.cfg
@@ -111,9 +129,10 @@ class TransformerOcc(nn.Module):
             (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype)
         queries = bev_queries[None].expand(b, *bev_queries.shape).to(
             self.dtype)
-        return self.encoder(queries, lifted, bev_pos)
+        return self.encoder(queries, lifted, bev_pos, train, generator)
 
-    def decode_voxels(self, bev_embed: torch.Tensor) -> torch.Tensor:
+    def decode_voxels(self, bev_embed: torch.Tensor, train: bool = False
+                      ) -> torch.Tensor:
         """(B, Q, C) -> (B, X, Y, Z, out_dim).  C splits middle-major x
         pillar; the decoder runs NCDHW with D = pillar (z)."""
         c = self.cfg
@@ -121,14 +140,15 @@ class TransformerOcc(nn.Module):
         middle = c.embed_dims // c.pillar_h
         x = bev_embed.reshape(b, c.bev_h, c.bev_w, middle, c.pillar_h)
         x = x.permute(0, 3, 4, 1, 2)                     # (B, mid, Z, H, W)
-        x = self.decoder1(self.decoder0(x))
+        x = self.decoder1(self.decoder0(x, train), train)
         return x.permute(0, 4, 3, 2, 1)                  # (B, X=W, Y=H, Z, C')
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor],
                 bev_queries: torch.Tensor, bev_pos: torch.Tensor,
-                ego2img: torch.Tensor
+                ego2img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         bev_embed = self.get_bev_features(mlvl_feats, bev_queries, bev_pos,
-                                          ego2img)
-        vox = self.decode_voxels(bev_embed)
+                                          ego2img, train, generator)
+        vox = self.decode_voxels(bev_embed, train)
         return bev_embed, self.predicter(vox), self.flow_predicter(vox)

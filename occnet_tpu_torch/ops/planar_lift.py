@@ -9,7 +9,8 @@ image line is steeper than 45 degrees resample in the other order (y first).
 
 The geometry here is plain fp32 PyTorch, op for op the JAX package's
 (`lift_pallas._plane_positions`, `planar_lift.warp_level_multi_z`); the
-sampling itself is `lift_cuda.lift_level` (CUDA kernel or plain version).
+sampling itself is `lift_cuda.lift_level` (CUDA kernel or plain version), and
+its gradient `lift_cuda.lift_level_bwd`, tied together by `_LiftAverage`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from occnet_tpu_torch.ops.lift_cuda import lift_level
+from occnet_tpu_torch.ops.lift_cuda import lift_level, lift_level_bwd
 
 
 def z_anchors(pc_range: Sequence[float], num_z: int) -> np.ndarray:
@@ -146,6 +147,40 @@ def level_geometry(Ml: torch.Tensor, bev_hw: Tuple[int, int], h: int, w: int,
             steep.reshape(B, A, Z * bev_h).contiguous(), valid)
 
 
+class _LiftAverage(torch.autograd.Function):
+    """The per-level lift loop with its transpose as the backward (the
+    counterpart of `lift_pallas.lift_level`'s custom VJP).  It allocates and
+    owns the (B, L, Z, Q, C) output; it saves only the per-level geometry
+    (pos1, pos2, steep) and inv_count, ~20 MB at level 0 of the full width.
+    Geometry and count get no gradient, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, geoms, inv_count, shape, out_dtype, impl, *feats):
+        B, L, Z, Q, C = shape
+        ZR, M = geoms[0][1].shape[2], geoms[0][1].shape[3]
+        U_bar = torch.empty(shape, dtype=out_dtype, device=inv_count.device)
+        for lvl, (feat, (pos1, pos2, steep)) in enumerate(zip(feats, geoms)):
+            lift_level(feat, pos1, pos2, steep, inv_count,
+                       U_bar[:, lvl].view(B, ZR, M, C), impl=impl)
+        ctx.save_for_backward(inv_count, *[t for g in geoms for t in g])
+        ctx.hws = [tuple(f.shape[2:4]) for f in feats]
+        ctx.impl = impl
+        return U_bar
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_count, *flat = ctx.saved_tensors
+        g = g.contiguous()
+        B, L, Z, Q, C = g.shape
+        dfeats = []
+        for lvl, hw in enumerate(ctx.hws):
+            pos1, pos2, steep = flat[3 * lvl: 3 * lvl + 3]
+            gl = g[:, lvl].view(B, pos2.shape[2], pos2.shape[3], C)
+            dfeats.append(lift_level_bwd(gl, pos1, pos2, steep, inv_count,
+                                         hw, impl=ctx.impl))
+        return (None, None, None, None, None, *dfeats)
+
+
 def lift_and_average(
     mlvl_feats: Sequence[torch.Tensor],   # per level (B, cams, h, w, C)
     ego2img: torch.Tensor,                # (B, cams, 4, 4)
@@ -160,16 +195,16 @@ def lift_and_average(
     count = #cameras where any z-anchor of query q is visible at level 0
     (clamped to >= 1) — the reference SCA's scatter-add + count
     normalisation.  Returns (U_bar (B, L, Z, Q, C) out_dtype, count (B, Q)
-    f32).  ``impl`` is passed to `lift_level` ("auto": kernel on CUDA)."""
+    f32).  ``impl`` is passed to `lift_level` ("auto": kernel on CUDA).
+    Differentiable in the features (bf16 gradient, as in the JAX package)."""
     dev = ego2img.device
     bev_h, bev_w = bev_hw
     Q = bev_h * bev_w
     B = ego2img.shape[0]
-    L = len(mlvl_feats)
     C = mlvl_feats[0].shape[-1]
     z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
     H = plane_homographies(ego2img.float(), pc_range, z, bev_hw)
-    U_bar = torch.empty(B, L, num_z, Q, C, dtype=out_dtype, device=dev)
+    geoms = []
     count = inv_count = None
     for lvl, feat in enumerate(mlvl_feats):
         h, w = feat.shape[2], feat.shape[3]
@@ -179,7 +214,8 @@ def lift_and_average(
             count = valid.any(dim=2).sum(dim=1).to(torch.float32)
             count = count.clamp(min=1.0).reshape(B, Q)
             inv_count = 1.0 / count
-        lift_level(feat.to(torch.bfloat16).contiguous(), pos1, pos2, steep,
-                   inv_count, U_bar[:, lvl].view(B, num_z * bev_h, bev_w, C),
-                   impl=impl)
+        geoms.append((pos1, pos2, steep))
+    U_bar = _LiftAverage.apply(
+        geoms, inv_count, (B, len(mlvl_feats), num_z, Q, C), out_dtype, impl,
+        *[f.to(torch.bfloat16).contiguous() for f in mlvl_feats])
     return U_bar, count

@@ -152,9 +152,10 @@ def test_predictor_serves_small_config(setup):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a tiny forward needs no jax: with
-    `import jax`/`flax` made to fail, the forward still runs, and no jax
-    module is loaded afterwards."""
+    """Importing the port, running a tiny forward and one CPU train step
+    through `occnet_tpu_torch.training` needs no jax: with `import
+    jax`/`flax` made to fail, both still run, and no jax module is loaded
+    afterwards."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'jaxlib'):\n"
@@ -174,6 +175,18 @@ def test_port_imports_no_jax():
         "e = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))\n"
         "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
         "assert occ.shape == (1, 4, 4, 2)\n"
+        "from occnet_tpu_torch.training import create_train_state, \\\n"
+        "    make_train_step\n"
+        "st = create_train_state(cfg, c.from_jax_variables(\n"
+        "    c.init_jax_style_variables(cfg, 0)), 'cpu')\n"
+        "rng = np.random.RandomState(0)\n"
+        "batch = {'img': torch.from_numpy(rng.randint(0, 256,\n"
+        "    (1, 2, 30, 32, 3), dtype=np.uint8)),\n"
+        "    'ego2img': torch.from_numpy(e),\n"
+        "    'voxel_semantics': torch.from_numpy(rng.randint(0, 17,\n"
+        "    (1, 4, 4, 2))), 'voxel_flow': torch.zeros(1, 4, 4, 2, 2)}\n"
+        "met = make_train_step(cfg)(st, batch)\n"
+        "assert st.step == 1 and np.isfinite(float(met['loss']))\n"
         "bad = [k for k, m in sys.modules.items() if m is not None and "
         "k.split('.')[0] in ('jax', 'flax', 'jaxlib')]\n"
         "assert not bad, bad\n"

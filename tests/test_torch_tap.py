@@ -1,6 +1,7 @@
 """The port's plain TSA tap attention (occnet_tpu_torch.ops.tsa) against the
 JAX shift loop (fp32, 1e-5) and the Pallas kernel in interpret mode (which
-rounds v/attn to bf16: the 2e-2 bound of tests/test_tsa_pallas.py)."""
+rounds v/attn to bf16: the 2e-2 bound of tests/test_tsa_pallas.py), forward
+and backward."""
 
 import numpy as np
 import pytest
@@ -84,3 +85,38 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         lift_level_cuda(feat, torch.zeros(1, 2, 6, 10), torch.zeros(1, 2, 6, 3),
                         torch.zeros(1, 2, 6, dtype=torch.bool),
                         torch.ones(1, 6), torch.empty(1, 6, 3, 8))
+
+
+def _port_vjp(vgrid, attn, g, dtype):
+    """(dv, dattn) of the port's differentiable `tap_attention` (its
+    autograd Function and plain backward) for the cotangent g."""
+    v = torch.from_numpy(vgrid).to(dtype).requires_grad_()
+    a = torch.from_numpy(attn).to(dtype).requires_grad_()
+    tap_attention(v, a).backward(torch.from_numpy(g))
+    assert v.grad.dtype == a.grad.dtype == dtype
+    return v.grad.float().numpy(), a.grad.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [dict(B=2, H=8, W=10),
+                                   dict(H=6, W=7, heads=2, D=4)])
+def test_tap_backward_matches_jax_vjp(dtype, shape):
+    """dv / dattn against `jax.vjp` of the Pallas tap attention (its closed-
+    form backward `_tap_attention_bwd`, the function the CUDA backward
+    replaces) and of the XLA shift loop (autodiff).  fp32: same sums, 1e-5.
+    bf16: both round dv / dattn to bf16 once (the closed form) or at every
+    tap (autodiff of the bf16 shift loop), so rtol = atol = 2e-2."""
+    vgrid, attn = _case(seed=5, **shape)
+    g = np.random.RandomState(6).randn(
+        vgrid.shape[0], vgrid.shape[2], vgrid.shape[3],
+        vgrid.shape[4]).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    got = _port_vjp(vgrid, attn, g, getattr(torch, dtype))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for fn in (tap_attention_pallas, tap_attention_xla):
+        _, vjp = jax.vjp(fn, jnp.asarray(vgrid, jdt), jnp.asarray(attn, jdt))
+        ref = vjp(jnp.asarray(g))
+        for a, b in zip(got, ref):
+            assert b.dtype == jdt
+            np.testing.assert_allclose(a, np.asarray(b, np.float32),
+                                       rtol=tol, atol=tol)
