@@ -21,6 +21,16 @@ Phases (each raises on failure, so any failure exits nonzero):
               photometric distortion, dropout): 1 warm-up + 3 timed steps
               through the CLI's train step; frozen stages bitwise unchanged,
               every other leaf moved, 4 launches of each kernel per step
+  9. kernels (msda)  the deformable-attention kernel vs its plain version at
+              base_occ's SCA shape (6 cameras x 12288 queries, 4 levels) and
+              TSA shape (2 x 40000 queries, 1 level), bf16 and f32 values
+ 10. exact parity  the pillar projection at full width and at tiny_occ's
+              size, card vs CPU bitwise (bev_mask and ref_cam); tiny_occ in
+              fp32 with static top-K SCA on the card and on the CPU: same
+              logits, same sca_topk_overflow
+ 11. serve exact  Predictor on base_occ (bf16, full width, gather encoder)
+              answers 3 requests; 24 msda launches, certificate 0; then one
+              request split by CUDA events and one under torch.profiler
 The last lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Needs no network and no JAX.
 """
@@ -43,6 +53,9 @@ LIFT_BWD_RTOL = 2.0 ** -7
 LIFT_BWD_ATOL = 2.0 ** -12   # x max|plain| of the level
 ADJOINT_RTOL = 1e-5      # fp32 inner products <lift f, g> vs <f, lift^T g>
 GRAD_RTOL = 5e-2         # per leaf, x max|g|: the lift's bf16 rounding bound
+MSDA_BF16_TOL = 2e-2     # bf16 values: one bf16 step (the tap bound)
+MSDA_F32_ATOL, MSDA_F32_RTOL = 2e-5, 1e-5   # tests/test_msda.py:192
+HBM_TBS = 3.35           # H100 SXM device-memory peak, TB/s
 REQUESTS = 3
 TRAIN_STEPS = 3
 
@@ -561,6 +574,256 @@ def phase_serve(torch, cfg, results):
         results[k]["launches"] = launches[k]
 
 
+def phase_msda_kernels(torch, cfg, results):
+    from occnet_tpu_torch.ops import msda
+    m = cfg.model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sca, tsa = m.encoder.sca, m.encoder.tsa
+    D = m.embed_dims // sca.num_heads
+    cases = [("SCA", m.num_cams, sca.max_queries_per_cam, sca.num_heads,
+              [(116, 200), (58, 100), (29, 50), (15, 25)], sca.num_points),
+             ("TSA", tsa.num_bev_queue, m.bev_h * m.bev_w, tsa.num_heads,
+              [(m.bev_h, m.bev_w)], tsa.num_points)]
+    ms = plain_ms = worst = 0.0
+    for name, N, Q, H, shapes, P in cases:
+        L, V = len(shapes), sum(h * w for h, w in shapes)
+        v32 = torch.randn(N, V, H, D, generator=gen, device=dev)
+        loc = torch.rand(N, Q, H, L, P, 2, generator=gen, device=dev
+                         ) * 1.4 - 0.2
+        attn = torch.softmax(torch.randn(N, Q, H, L * P, generator=gen,
+                                         device=dev), -1
+                             ).reshape(N, Q, H, L, P).contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            v = v32.to(dtype)
+            got = msda.msda_cuda(v, shapes, loc, attn).float()
+            want = msda.msda_plain(v, shapes, loc, attn).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if dtype == torch.bfloat16:
+                bound = MSDA_BF16_TOL + MSDA_BF16_TOL * want.abs()
+            else:
+                bound = MSDA_F32_ATOL + MSDA_F32_RTOL * want.abs()
+            ok = bool((diff <= bound).all()) \
+                and bool(torch.isfinite(got).all())
+            err = diff.max().item()
+            log(f"  msda {name} value {tuple(v.shape)} {dtype}, Q={Q}, "
+                f"L={L}, P={P}: max|kernel-plain| = {err:.3e}, |plain| max "
+                f"{want.abs().max().item():.3f}, within bound: {ok}")
+            if not ok:
+                raise RuntimeError(f"msda kernel disagrees with plain "
+                                   f"({name}, {dtype}): {err}")
+            worst = max(worst, err)
+            k, p = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc,
+                                                          attn),
+                            lambda: msda.msda_plain(v, shapes, loc, attn), 5)
+            nbytes = (v.numel() * v.element_size() + loc.numel() * 4
+                      + attn.numel() * 4 + got.numel() * v.element_size())
+            log(f"  msda {name} {dtype}: kernel {k:.4f} ms, plain {p:.4f} "
+                f"ms; compulsory {nbytes / 1e6:.1f} MB -> "
+                f"{nbytes / k / 1e9:.3f} TB/s "
+                f"({nbytes / k / 1e9 / HBM_TBS:.1%} of {HBM_TBS} TB/s)")
+            if dtype == torch.bfloat16:
+                ms, plain_ms = ms + k, plain_ms + p
+    log(f"  msda per encoder layer (1 TSA + 1 SCA call, bf16): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results["msda"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def exact_cfg(name, **sca):
+    """A named gather-mode config in fp32 or bf16 with SCA overrides."""
+    from occnet_tpu.config import base_occ, tiny_occ
+    cfg = {"base_occ": base_occ, "tiny_occ": tiny_occ}[name]()
+    m = cfg.model
+    enc = dataclasses.replace(m.encoder, sca=dataclasses.replace(
+        m.encoder.sca, **sca))
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, encoder=enc))
+
+
+def phase_exact_parity(torch):
+    from occnet_tpu_torch import geometry
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.serve import Predictor
+    # the pillar projection is fp32 op for op: bitwise equal on card and CPU
+    # (the ring rig's 90-degree cameras put BEV cells exactly on their edges)
+    for name in ("base_occ", "tiny_occ"):
+        mc = exact_cfg(name).model
+        ref3d = geometry.bev_reference_points_3d(
+            mc.bev_h, mc.bev_w, mc.pc_range[5] - mc.pc_range[2],
+            mc.encoder.num_points_in_pillar)
+        e2i = torch.from_numpy(ring_rig(mc, 1))
+        (rg, mg), (rc, mcpu) = [geometry.project_bev_points_to_cameras(
+            ref3d, mc.pc_range, e2i.to(dev), (mc.img_h, mc.img_w))
+            for dev in ("cuda", "cpu")]
+        same_mask = torch.equal(mg.cpu(), mcpu)
+        same_ref = torch.equal(rg.cpu(), rc)
+        vis = mcpu.any(-1).sum(-1)[:, 0].tolist()
+        log(f"  {name} pillar projection {tuple(mcpu.shape)}, card vs CPU "
+            f"bitwise equal: bev_mask {same_mask}, ref_cam {same_ref} (max "
+            f"|diff| {(rg.cpu() - rc).abs().max().item():.3e}); visible "
+            f"queries per camera {vis}")
+        if not same_mask:
+            raise RuntimeError(f"{name}: bev_mask differs between card and "
+                               f"CPU")
+    m0 = exact_cfg("tiny_occ").model
+    e2i = ring_rig(m0, 1)
+    k = geometry.calibration_topk(m0, e2i)
+    cfg = exact_cfg("tiny_occ", max_queries_per_cam=k)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    m = cfg.model
+    sd = from_jax_variables(randomize_variables(
+        init_jax_style_variables(cfg, seed=1), seed=2))
+    imgs = np.random.RandomState(3).randint(
+        0, 256, (1, m.num_cams, m.img_h, m.img_w, 3), dtype=np.uint8)
+    MSDA.launches = 0
+    pg, pc = Predictor(cfg, sd, "cuda"), Predictor(cfg, sd, "cpu")
+    _, _, lg = pg(imgs, e2i, with_logits=True)
+    launches = MSDA.launches
+    _, _, lc = pc(imgs, e2i, with_logits=True)
+    lg = lg.float().cpu()
+    err = (lg - lc).abs().max().item()
+    agree = (lg.argmax(-1) == lc.argmax(-1)).float().mean().item()
+    log(f"  tiny_occ fp32, static top-K K={k} of {m.bev_h * m.bev_w} "
+        f"queries: {tuple(lg.shape)} max|card-cpu| logits = {err:.3e} (atol "
+        f"{LOGIT_ATOL}), argmax agreement {agree:.5f}, |logits| max "
+        f"{lc.abs().max().item():.3f}; sca_topk_overflow card "
+        f"{pg.sca_topk_overflow} cpu {pc.sca_topk_overflow}; msda launches "
+        f"on the card {launches}")
+    if not (err <= LOGIT_ATOL and agree >= 0.99
+            and torch.isfinite(lg).all().item()
+            and pg.sca_topk_overflow == pc.sca_topk_overflow == 0
+            and launches == 2 * m.encoder.num_layers):
+        raise RuntimeError("card and CPU disagree on tiny_occ")
+
+
+def request_split(torch, pred, imgs, e2i):
+    """One request with CUDA events recorded by module hooks; returns the
+    intervals between consecutive marks, summed over the encoder layers,
+    in order of first appearance."""
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    model = pred.model
+    tr = model.head.transformer
+    watch = [("trunk", model.backbone), ("fpn", model.neck),
+             ("encoder", tr.encoder), ("decoder0", tr.decoder0),
+             ("decoder1", tr.decoder1), ("heads", tr.predicter),
+             ("flow_head", tr.flow_predicter)]
+    for lid in range(tr.encoder.num_layers):
+        layer = getattr(tr.encoder, f"layer{lid}")
+        watch += [("TSA", layer.self_attn), ("SCA", layer.cross_attn),
+                  ("SCA.msda_module", layer.cross_attn.deformable_attention),
+                  ("SCA.output_proj", layer.cross_attn.output_proj),
+                  ("FFN", layer.ffn)]
+    hooks = []
+    for name, mod in watch:
+        hooks.append(mod.register_forward_pre_hook(
+            lambda *_, n=name: mark(n + ">")))
+        hooks.append(mod.register_forward_hook(
+            lambda *_, n=name: mark(n + "<")))
+    try:
+        torch.cuda.synchronize()
+        mark("request>")
+        pred(imgs, e2i)
+        mark("request<")
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    split = {}
+    for (a, ea), (b, eb) in zip(marks, marks[1:]):
+        key = f"{a} -> {b}"
+        split[key] = split.get(key, 0.0) + ea.elapsed_time(eb)
+    return split, marks[0][1].elapsed_time(marks[-1][1])
+
+
+def phase_serve_exact(torch, results):
+    from occnet_tpu_torch import geometry
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.serve import Predictor
+    cfg = exact_cfg("base_occ")
+    m = cfg.model
+    e2i = ring_rig(m, 1)
+    need = geometry.calibration_topk(m, e2i, margin=1.0, multiple=1)
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, from_jax_variables(
+        init_jax_style_variables(cfg, seed=0)), "cuda")
+    ks = pred.model.head.transformer.encoder.layer0.cross_attn.topk_sizes(
+        m.bev_h * m.bev_w)
+    groups = len(set(ks)) or 1
+    log(f"  Predictor(base_occ, bf16, gather) ready in "
+        f"{time.perf_counter() - t0:.1f} s; top-K per camera {ks}, the "
+        f"ring rig's worst camera sees {need} queries")
+    rng = np.random.RandomState(8)
+    reqs = [rng.randint(0, 256, (1, m.num_cams, 900, 1600, 3),
+                        dtype=np.uint8) for _ in range(REQUESTS + 2)]
+    pred(reqs[0], e2i)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MSDA.launches = 0
+    lat = []
+    for imgs in reqs[1:REQUESTS + 1]:
+        t = time.perf_counter()
+        occ, flow, logits = pred(imgs, e2i, with_logits=True)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        if tuple(occ.shape) != (1, m.bev_w, m.bev_h, m.pillar_h) or \
+                tuple(flow.shape) != (1, m.bev_w, m.bev_h, m.pillar_h, 2):
+            raise RuntimeError(f"bad output shapes {occ.shape} {flow.shape}")
+        if not (torch.isfinite(logits).all() and torch.isfinite(flow).all()):
+            raise RuntimeError("non-finite logits or flow")
+        if pred.sca_topk_overflow != 0:
+            raise RuntimeError(f"sca_topk_overflow {pred.sca_topk_overflow}")
+    launches = MSDA.launches
+    want = REQUESTS * m.encoder.num_layers * (1 + groups)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {REQUESTS} requests: latency ms {[round(x, 3) for x in lat]}, "
+        f"mean {sum(lat) / len(lat):.3f}; peak allocated {peak:.3f} GiB; "
+        f"sca_topk_overflow {pred.sca_topk_overflow}; msda launches "
+        f"{launches} (expected {want}); card {nvidia_smi()}")
+    log(f"  occ classes used {int(occ.unique().numel())}, logits range "
+        f"[{logits.min().item():.3f}, {logits.max().item():.3f}]")
+    if launches != want:
+        raise RuntimeError(f"msda launch count {launches} != {want}")
+    results["msda"]["launches"] = launches
+
+    split, total = request_split(torch, pred, reqs[-1], e2i)
+    log(f"  one request split by CUDA events (module hooks), total "
+        f"{total:.3f} ms; intervals summed over the "
+        f"{m.encoder.num_layers} layers:")
+    for key, val in split.items():
+        log(f"    {val:9.3f} ms  {key}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred(reqs[-1], e2i)
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t and e.key not in dev_ms and not e.key.startswith("aten::") \
+                and not e.key.startswith("cuda"):
+            dev_ms[e.key] = t / 1e3
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]
+    msda_ms = sum(v for k, v in dev_ms.items() if "msda_kernel" in k)
+    log(f"  profiler, one request: device kernels total "
+        f"{sum(dev_ms.values()):.3f} ms, msda_kernel {msda_ms:.3f} ms; top:")
+    for k, v in top:
+        log(f"    {v:9.3f} ms  {k[:100]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -602,6 +865,14 @@ def main():
     phase_train_parity(torch)
     log("[8 train] turbo_occ full width, bf16, B=1, config defaults")
     phase_train(torch, cfg, results)
+    torch.cuda.empty_cache()
+    log("[9 kernels (msda)] kernel vs plain at base_occ's SCA and TSA shapes")
+    phase_msda_kernels(torch, exact_cfg("base_occ"), results)
+    log("[10 exact parity] pillar projection card vs CPU bitwise; tiny_occ "
+        "fp32, static top-K, card vs CPU")
+    phase_exact_parity(torch)
+    log("[11 serve exact] base_occ full width, bf16, gather encoder")
+    phase_serve_exact(torch, results)
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -620,6 +891,10 @@ def main():
              source="occnet_tpu_torch/csrc/tap_bwd.cu",
              replaces="occnet_tpu/ops/tsa_pallas.py:155",
              **results["tap_bwd"]),
+        dict(name="msda", route="cuda",
+             source="occnet_tpu_torch/csrc/msda.cu",
+             replaces="occnet_tpu/ops/msda_pallas.py:78,120,156",
+             **results["msda"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -19,9 +19,9 @@ by dots, with the leaf renamed and laid out for PyTorch:
 JAX -> port is a straight transpose; there is no RGB flip of conv1 (that flip
 belongs to torchvision -> JAX, `occnet_tpu/utils/torch_convert.py`).
 
-`init_jax_style_variables` builds the JAX package's tree for a dense-mode
-ResNet config with numpy, using the JAX initialisers, so the port runs at
-the activation scale the JAX package runs at without importing JAX.
+`init_jax_style_variables` builds the JAX package's tree for a ResNet config
+(dense or gather encoder) with numpy, using the JAX initialisers, so the port
+runs at the activation scale the JAX package runs at without importing JAX.
 `randomize_variables` fills the zero/identity-initialised leaves (attention
 weights, biases, norm scales, BN statistics) with random values, so a
 comparison also exercises their layouts.
@@ -97,16 +97,19 @@ def _set(tree: dict, path: str, value: np.ndarray) -> None:
 
 def init_jax_style_variables(cfg, seed: int = 0) -> dict:
     """The flax init tree of `occnet_tpu.models.detector.OccNet` for a
-    dense-mode ResNet ``cfg`` (OccNetConfig or ModelConfig), drawn with numpy
-    from ``seed`` with the same initialisers: he_normal for ResNet convs,
-    xavier_uniform for FPN convs / Dense / Conv3d, zeros for
-    `attention_weights` and biases, normal(1) for embeddings, uniform[0, 1)
-    for positional tables, identity norms and BN statistics."""
+    ResNet ``cfg`` (OccNetConfig or ModelConfig) with a dense or gather
+    encoder, drawn with numpy from ``seed`` with the same initialisers:
+    he_normal for ResNet convs, xavier_uniform for FPN convs / Dense /
+    Conv3d, zeros for `attention_weights`, `sampling_offsets` kernels and
+    biases, the radial grid (`radial_offset_bias`) for `sampling_offsets`
+    biases, normal(1) for embeddings, uniform[0, 1) for positional tables,
+    identity norms and BN statistics."""
     m: ModelConfig = cfg.model if isinstance(cfg, OccNetConfig) else cfg
+    from occnet_tpu_torch.models.attention import radial_offset_bias
     from occnet_tpu_torch.models.resnet import STAGE_BLOCKS, stage_channels
     from occnet_tpu_torch.ops.tsa import TSA_TAPS
-    if m.encoder.mode != "dense":
-        raise ValueError("init_jax_style_variables covers the dense encoder")
+    if m.encoder.mode not in ("dense", "gather"):
+        raise ValueError(f"unknown encoder mode {m.encoder.mode!r}")
     rng = np.random.RandomState(seed)
     params: dict = {}
     stats: dict = {}
@@ -126,10 +129,11 @@ def init_jax_style_variables(cfg, seed: int = 0) -> dict:
         lim = np.sqrt(6.0 / (rf * shape[-2] + rf * shape[-1]))
         return rng.uniform(-lim, lim, shape).astype(f32)
 
-    def dense(path, i, o, zero=False):
+    def dense(path, i, o, zero=False, bias=None):
         _set(params, path + "/kernel",
              np.zeros((i, o), f32) if zero else xavier((i, o)))
-        _set(params, path + "/bias", np.zeros(o, f32))
+        _set(params, path + "/bias",
+             np.zeros(o, f32) if bias is None else bias.astype(f32))
 
     def norm(path, c, stats_too=False):
         _set(params, path + "/scale", np.ones(c, f32))
@@ -184,18 +188,38 @@ def init_jax_style_variables(cfg, seed: int = 0) -> dict:
     _set(params, f"{t}/level_embeds",
          rng.randn(m.num_feature_levels, C).astype(f32))
     _set(params, f"{t}/cams_embeds", rng.randn(m.num_cams, C).astype(f32))
-    dense(f"{t}/shared_value_proj", C, C)
     e = m.encoder
+    if e.mode == "dense":
+        dense(f"{t}/shared_value_proj", C, C)
     L, Z = m.num_feature_levels, e.num_points_in_pillar
     for lid in range(e.num_layers):
         p = f"{t}/encoder/layer{lid}"
         H, nq = e.tsa.num_heads, e.tsa.num_bev_queue
-        dense(f"{p}/self_attn/value_proj", C, C)
-        dense(f"{p}/self_attn/attention_weights", 2 * C,
-              nq * H * len(TSA_TAPS), zero=True)
-        dense(f"{p}/self_attn/output_proj", C, C)
-        dense(f"{p}/cross_attn/attention_weights", C, e.sca.num_heads * L * Z,
-              zero=True)
+        if e.mode == "dense":
+            dense(f"{p}/self_attn/value_proj", C, C)
+            dense(f"{p}/self_attn/attention_weights", 2 * C,
+                  nq * H * len(TSA_TAPS), zero=True)
+            dense(f"{p}/self_attn/output_proj", C, C)
+            dense(f"{p}/cross_attn/attention_weights", C,
+                  e.sca.num_heads * L * Z, zero=True)
+        else:
+            tL, tP = e.tsa.num_levels, e.tsa.num_points
+            dense(f"{p}/self_attn/value_proj", C, C)
+            dense(f"{p}/self_attn/sampling_offsets", 2 * C,
+                  nq * H * tL * tP * 2, zero=True,
+                  bias=radial_offset_bias(H, tL * nq, tP))
+            dense(f"{p}/self_attn/attention_weights", 2 * C,
+                  nq * H * tL * tP, zero=True)
+            dense(f"{p}/self_attn/output_proj", C, C)
+            s = e.sca
+            da = f"{p}/cross_attn/deformable_attention"
+            dense(f"{da}/value_proj", C, C)
+            dense(f"{da}/sampling_offsets", C,
+                  s.num_heads * s.num_levels * s.num_points * 2, zero=True,
+                  bias=radial_offset_bias(s.num_heads, s.num_levels,
+                                          s.num_points))
+            dense(f"{da}/attention_weights", C,
+                  s.num_heads * s.num_levels * s.num_points, zero=True)
         dense(f"{p}/cross_attn/output_proj", C, C)
         dense(f"{p}/ffn/fc1", C, e.ffn_dim)
         dense(f"{p}/ffn/fc2", e.ffn_dim, C)

@@ -1,6 +1,7 @@
 """OccHead (port of `occnet_tpu/models/head.py`): the BEV query table, the
 learned positional encoding, TransformerOcc, the CE + L1 occupancy/flow loss
-`occ_flow_loss`, and the argmax decode `get_occ`."""
+`occ_flow_loss`, and the argmax decode `get_occ`.  In gather mode the outputs
+carry the SCA exactness certificate `sca_topk_overflow` (0-d int64)."""
 
 from __future__ import annotations
 
@@ -29,10 +30,13 @@ class OccHead(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         bev_pos = self.positional_encoding(mlvl_feats[0].shape[0])
-        bev_embed, occ, flow = self.transformer(
+        bev_embed, occ, flow, overflow = self.transformer(
             mlvl_feats, self.bev_embedding, bev_pos, ego2img, train,
             generator)
-        return {"bev_embed": bev_embed, "occ": occ, "flow": flow}
+        outs = {"bev_embed": bev_embed, "occ": occ, "flow": flow}
+        if overflow is not None:
+            outs["sca_topk_overflow"] = overflow
+        return outs
 
 
 # GT labels below this bound are flow classes (they lead OCC_CLASS_NAMES);

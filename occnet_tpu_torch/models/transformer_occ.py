@@ -1,6 +1,7 @@
-"""TransformerOcc, dense mode (port of `occnet_tpu/models/transformer_occ.py`):
-camera/level embeddings + the layer-shared value projection, the planar lift,
-the BEVFormer encoder, the Conv3d voxel decoder and the occ/flow MLP heads.
+"""TransformerOcc (port of `occnet_tpu/models/transformer_occ.py`):
+camera/level embeddings, then in dense mode the layer-shared value projection
+and the planar lift, in gather mode the flattened camera pyramid; the
+BEVFormer encoder, the Conv3d voxel decoder and the occ/flow MLP heads.
 
 Output grids are (B, X, Y, Z, .) like the JAX package.
 """
@@ -94,8 +95,12 @@ class TransformerOcc(nn.Module):
         self.cams_embeds = nn.Parameter(torch.randn(c.num_cams, c.embed_dims))
         self.encoder = BEVFormerEncoder(
             c.encoder, c.embed_dims, (c.bev_h, c.bev_w),
-            c.num_feature_levels, dtype)
-        self.shared_value_proj = Linear(c.embed_dims, c.embed_dims, dtype)
+            c.num_feature_levels, c.num_cams, c.pc_range, (c.img_h, c.img_w),
+            dtype)
+        if c.encoder.mode == "dense":
+            # layer-shared pre-lift value projection (dense mode only; the
+            # gather encoder keeps a value projection per layer)
+            self.shared_value_proj = Linear(c.embed_dims, c.embed_dims, dtype)
         middle = c.embed_dims // c.pillar_h
         self.decoder0 = ConvBNReLU3D(middle, c.out_dim, dtype)
         self.decoder1 = ConvBNReLU3D(c.out_dim, c.out_dim, dtype)
@@ -114,22 +119,40 @@ class TransformerOcc(nn.Module):
             out.append(f + self.level_embeds[lvl].to(f.dtype))
         return out
 
+    def flatten_mlvl_feats(self, mlvl_feats: Sequence[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, Tuple[Tuple[int, int],
+                                                          ...]]:
+        """Gather mode: the embedded (B, cams, h, w, C) maps flattened and
+        concatenated level by level -> (B, cams, V, C) + the level shapes."""
+        flat = [f.reshape(*f.shape[:2], -1, f.shape[-1])
+                for f in self.flat_embed(mlvl_feats)]
+        shapes = tuple((int(f.shape[2]), int(f.shape[3])) for f in mlvl_feats)
+        return torch.cat(flat, dim=2), shapes
+
     def get_bev_features(self, mlvl_feats: Sequence[torch.Tensor],
                          bev_queries: torch.Tensor, bev_pos: torch.Tensor,
                          ego2img: torch.Tensor, train: bool = False,
                          generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
-        """Shared value projection on the camera maps (it commutes with the
-        channel-linear lift), the lift, then the encoder.  -> (B, Q, C)."""
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Dense: shared value projection on the camera maps (it commutes
+        with the channel-linear lift), the lift, then the encoder.  Gather:
+        the flattened pyramid into the encoder.  -> ((B, Q, C),
+        sca_topk_overflow or None)."""
         c = self.cfg
         b = mlvl_feats[0].shape[0]
-        feats = [self.shared_value_proj(f) for f in self.flat_embed(mlvl_feats)]
+        queries = bev_queries[None].expand(b, *bev_queries.shape).to(
+            self.dtype)
+        if c.encoder.mode == "gather":
+            value, shapes = self.flatten_mlvl_feats(mlvl_feats)
+            return self.encoder(queries, value, bev_pos, ego2img, shapes,
+                                train, generator)
+        feats = [self.shared_value_proj(f)
+                 for f in self.flat_embed(mlvl_feats)]
         lifted, _count = lift_and_average(
             feats, ego2img, c.pc_range, c.encoder.num_points_in_pillar,
             (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype)
-        queries = bev_queries[None].expand(b, *bev_queries.shape).to(
-            self.dtype)
-        return self.encoder(queries, lifted, bev_pos, train, generator)
+        return self.encoder(queries, lifted, bev_pos, train=train,
+                            generator=generator)
 
     def decode_voxels(self, bev_embed: torch.Tensor, train: bool = False
                       ) -> torch.Tensor:
@@ -147,8 +170,11 @@ class TransformerOcc(nn.Module):
                 bev_queries: torch.Tensor, bev_pos: torch.Tensor,
                 ego2img: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        bev_embed = self.get_bev_features(mlvl_feats, bev_queries, bev_pos,
-                                          ego2img, train, generator)
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+        """-> (bev_embed, occ logits, flow, sca_topk_overflow or None)."""
+        bev_embed, overflow = self.get_bev_features(
+            mlvl_feats, bev_queries, bev_pos, ego2img, train, generator)
         vox = self.decode_voxels(bev_embed, train)
-        return bev_embed, self.predicter(vox), self.flow_predicter(vox)
+        return (bev_embed, self.predicter(vox), self.flow_predicter(vox),
+                overflow)

@@ -1,3 +1,4 @@
-"""Ops of the port: the planar lift and the TSA tap attention, forward and
-backward, each a CUDA kernel (`csrc/`) with a plain PyTorch version beside
-it, and the grid mask."""
+"""Ops of the port, each a CUDA kernel (`csrc/`) with a plain PyTorch
+version beside it: the planar lift and the TSA tap attention, forward and
+backward (dense encoder), and multi-scale deformable attention (gather
+encoder, forward); plus the grid mask."""

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, loaded with `ctypes`.  The build runs
-at first use (never at import), goes to `csrc/build/` (git-ignored), and is
-keyed by a hash of the sources and flags, so an edited kernel rebuilds and an
-unchanged one loads in milliseconds.  Including no PyTorch header keeps the
-build to seconds.
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source, all started together, and the objects are linked
+into ONE shared library with a plain C interface, loaded with `ctypes`.  The
+build runs at first use (never at import), goes to `csrc/build/`
+(git-ignored), and is keyed by a hash of the sources and flags, so an edited
+kernel rebuilds and an unchanged one loads in milliseconds.  Including no
+PyTorch header keeps the build to seconds.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises on a nonzero code and counts
@@ -26,8 +27,9 @@ from typing import Optional, Sequence
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last build/load
@@ -64,20 +66,45 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"liboccnet_kernels_{digest.hexdigest()[:16]}"
                                  ".so")
     if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        with open(so[:-3] + ".log", "w") as f:
-            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
-        os.replace(tmp, so)        # atomic: a concurrent loader never sees
-    _lib = ctypes.CDLL(so)         # a half-written library
+        _compile(so, [s for s in srcs if s.endswith(".cu")])
+    _lib = ctypes.CDLL(so)
     build_seconds = time.perf_counter() - t0
     return _lib
+
+
+def _compile(so: str, cu_sources: Sequence[str]) -> None:
+    """nvcc -c every source in parallel, then link them into ``so``."""
+    nvcc = _nvcc()
+    tmp_dir = f"{so}.{os.getpid()}.d"
+    os.makedirs(tmp_dir, exist_ok=True)
+    jobs = []
+    for src in cu_sources:
+        obj = os.path.join(tmp_dir, os.path.basename(src)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = os.path.join(tmp_dir, "lib.so")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stdout + res.stderr)
+    with open(so[:-3] + ".log", "w") as f:
+        f.write("\n".join(log))
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
+    os.replace(tmp, so)            # atomic: a concurrent loader never sees
+    shutil.rmtree(tmp_dir, ignore_errors=True)   # a half-written library
 
 
 def build_log() -> str:

@@ -152,10 +152,10 @@ def test_predictor_serves_small_config(setup):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, running a tiny forward and one CPU train step
-    through `occnet_tpu_torch.training` needs no jax: with `import
-    jax`/`flax` made to fail, both still run, and no jax module is loaded
-    afterwards."""
+    """Importing the port, running a tiny forward in each encoder mode
+    (dense and gather) and one CPU train step through
+    `occnet_tpu_torch.training` needs no jax: with `import jax`/`flax` made
+    to fail, all still run, and no jax module is loaded afterwards."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'jaxlib'):\n"
@@ -173,6 +173,12 @@ def test_port_imports_no_jax():
         "p = s.Predictor(cfg, c.from_jax_variables(\n"
         "    c.init_jax_style_variables(cfg, 0)), 'cpu')\n"
         "e = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))\n"
+        "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
+        "assert occ.shape == (1, 4, 4, 2)\n"
+        "g = dataclasses.replace(cfg, model=dataclasses.replace(m,\n"
+        "    encoder=dataclasses.replace(m.encoder, mode='gather')))\n"
+        "p = s.Predictor(g, c.from_jax_variables(\n"
+        "    c.init_jax_style_variables(g, 0)), 'cpu')\n"
         "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
         "assert occ.shape == (1, 4, 4, 2)\n"
         "from occnet_tpu_torch.training import create_train_state, \\\n"
