@@ -31,8 +31,25 @@ Phases (each raises on failure, so any failure exits nonzero):
  11. serve exact  Predictor on base_occ (bf16, full width, gather encoder)
               answers 3 requests; 24 msda launches, certificate 0; then one
               request split by CUDA events and one under torch.profiler
-The last lines are the kernels JSON, the nvidia-smi line and
-{"ok": true, "device": {...}}.  Needs no network and no JAX.
+ 12. kernels (dcn)  the DCNv2 sampling kernel vs its plain version at the
+              four DCN shapes of R101-DCN (B = 6; stride 1 and 2; bf16 and
+              f32), offsets N(0, 2^2) px with 1 % at +/-30 px; the window
+              certificate at R = 3 card vs CPU; times and the bound
+ 13. dcn parity  tiny R101-DCN in fp32 with window DCN, dense and gather
+              encoders, on the card and on the CPU: same logits, same
+              certificates, 26 deform_sample launches
+ 14. serve turbo_r101_dcn_occ  full width, bf16 (window DCN, dense
+              encoder), conv_offset drawn from a seed and calibrated to
+              |offset| <= 2.5 px: every layer's needed_radius, 3 requests
+              with 26 deform_sample + 4 lift + 4 tap launches each and
+              dcn_window_overflow 0; one request split by CUDA events
+ 15. serve r101_dcn_occ  the same with gather DCN and the exact encoder:
+              26 deform_sample + 8 msda launches a request,
+              sca_topk_overflow 0
+The last lines are the kernels JSON (each kernel with its bound_ms: the
+larger of its compulsory bytes over 3.35 TB/s and its fp32 operations over
+67 TFLOP/s), the nvidia-smi line and {"ok": true, "device": {...}}.  Needs
+no network and no JAX.
 """
 
 import dataclasses
@@ -56,12 +73,33 @@ GRAD_RTOL = 5e-2         # per leaf, x max|g|: the lift's bf16 rounding bound
 MSDA_BF16_TOL = 2e-2     # bf16 values: one bf16 step (the tap bound)
 MSDA_F32_ATOL, MSDA_F32_RTOL = 2e-5, 1e-5   # tests/test_msda.py:192
 HBM_TBS = 3.35           # H100 SXM device-memory peak, TB/s
+FP32_TFLOPS = 67.0       # H100 SXM fp32 peak outside the tensor cores
+# deform_sample: kernel and plain version take the same fp32 operations in
+# the same order, so f32 results are expected bitwise; the bound allows
+# summation noise at 1e-6 of the largest input
+DCN_F32_RTOL = 1e-6
+DCN_RADIUS = 3           # the served window radius of turbo_r101_dcn_occ
+DCN_MAX_PX = 2.5         # largest |offset| after calibration: floor in [-3, 2]
 REQUESTS = 3
 TRAIN_STEPS = 3
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def least_time(nb: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that must move ``nb`` bytes (each input read once, each output written
+    once) and do ``flops`` fp32 operations on the CUDA cores: the larger of
+    bytes over 3.35 TB/s and operations over 67 TFLOP/s."""
+    t_bytes = nb / (HBM_TBS * 1e12) * 1e3
+    t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nvidia_smi() -> str:
@@ -197,7 +235,16 @@ def phase_kernels(torch, cfg, results):
 
             k, p = in_turns(torch, run(lift_level_cuda),
                             run(lift_level_plain), 5)
-            results["lift"].update(ms=k, plain_ms=p)
+            # each visible (camera, cell) pair: 2x2 corners, mul + add per
+            # channel
+            flops = sum((p2 > -2).sum().item() for _, _, p2, _ in args) \
+                * C * 8
+            b_ms, by = least_time(sum(nbytes(*a) for a in args)
+                                  + nbytes(inv, uk), flops)
+            results["lift"].update(ms=k, plain_ms=p, bound_ms=b_ms,
+                                   bound_by=by, library_ms=None)
+            log(f"  lift bound {b_ms:.4f} ms ({by}); kernel at "
+                f"{b_ms / k:.1%} of it")
             full = cuda_ms(torch, lambda: planar_lift.lift_and_average(
                 feats, e2i, m.pc_range, Z, bev_hw, img_hw, impl="cuda"), 5)
             log(f"  lift 4 levels B=1: kernel {k:.4f} ms, plain {p:.4f} ms; "
@@ -224,14 +271,18 @@ def phase_kernels(torch, cfg, results):
         raise RuntimeError(f"tap kernel disagrees with plain: {err}")
     k, p = in_turns(torch, lambda: tsa.tap_attention_cuda(v, attn),
                     lambda: tsa.tap_attention_plain(v, attn), 20)
-    nbytes = v.numel() * 2 + attn.numel() * 2 + ok_.numel() * 4
+    nb = nbytes(v, attn, ok_)
+    # 2 queue slots x 9 taps, mul + add per output element
+    b_ms, by = least_time(nb, ok_.numel() * nq * len(tsa.TSA_TAPS) * 2)
     log(f"  tap: kernel {k:.4f} ms, plain {p:.4f} ms; "
-        f"{nbytes / 1e6:.1f} MB moved -> {nbytes / k / 1e9:.3f} TB/s")
-    results["tap"] = {"max_abs_err": err, "ms": k, "plain_ms": p}
+        f"{nb / 1e6:.1f} MB moved -> {nb / k / 1e9:.3f} TB/s; bound "
+        f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
+    results["tap"] = {"max_abs_err": err, "ms": k, "plain_ms": p,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
 def phase_parity(torch, full_cfg):
-    from occnet_tpu.config import tiny_turbo_occ
+    from occnet_tpu_torch.config import tiny_turbo_occ
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables,
                                           randomize_variables)
@@ -333,6 +384,7 @@ def phase_kernels_bwd(torch, cfg, results):
 
     # adjoint identity <lift(f), g> = <f, lift^T(g)>, fp32 output both ways
     e2i, geo, inv, gs = out[1]
+    B1 = 1
     for (h, w), (p1, p2, st), g in zip(levels, geo, gs):
         f = torch.randn(1, m.num_cams, h, w, C, generator=gen, device=dev
                         ).to(torch.bfloat16)
@@ -357,8 +409,17 @@ def phase_kernels_bwd(torch, cfg, results):
 
     k, p = in_turns(torch, run(lift_level_bwd_cuda),
                     run(lift_level_bwd_plain), 3)
-    results["lift_bwd"].update(ms=k, plain_ms=p)
-    log(f"  lift_bwd 4 levels B=1: kernel {k:.4f} ms, plain {p:.4f} ms")
+    # reads g and the geometry, writes one bf16 feature gradient per level;
+    # the forward's operations, transposed
+    nb = sum(nbytes(g, p1, p2, st) + B1 * m.num_cams * h * w * C * 2
+             for (h, w), (p1, p2, st), g in zip(levels, geo, gs)) \
+        + nbytes(inv)
+    flops = sum((p2 > -2).sum().item() for _, p2, _ in geo) * C * 8
+    b_ms, by = least_time(nb, flops)
+    results["lift_bwd"].update(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=by,
+                               library_ms=None)
+    log(f"  lift_bwd 4 levels B=1: kernel {k:.4f} ms, plain {p:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
 
     heads = m.encoder.tsa.num_heads
     nq = m.encoder.tsa.num_bev_queue
@@ -385,17 +446,23 @@ def phase_kernels_bwd(torch, cfg, results):
         errs.append(err)
     k, p = in_turns(torch, lambda: tsa.tap_attention_bwd_cuda(v, attn, g),
                     lambda: tsa.tap_attention_bwd_plain(v, attn, g), 10)
-    nbytes = 2 * (v.numel() * 2 + attn.numel() * 2) + g.numel() * 4
-    log(f"  tap_bwd: kernel {k:.4f} ms, plain {p:.4f} ms; {nbytes / 1e6:.1f} "
-        f"MB moved -> {nbytes / k / 1e9:.3f} TB/s")
-    results["tap_bwd"] = {"max_abs_err": max(errs), "ms": k, "plain_ms": p}
+    nb = nbytes(v, attn, g, dvk, dak)
+    # dv: each output-gradient element scatters to 2 x 9 taps; dattn: the
+    # same products summed over channels (mul + add each)
+    b_ms, by = least_time(nb, g.numel() * nq * len(tsa.TSA_TAPS) * 4)
+    log(f"  tap_bwd: kernel {k:.4f} ms, plain {p:.4f} ms; {nb / 1e6:.1f} "
+        f"MB moved -> {nb / k / 1e9:.3f} TB/s; bound {b_ms:.4f} ms ({by}), "
+        f"kernel at {b_ms / k:.1%} of it")
+    results["tap_bwd"] = {"max_abs_err": max(errs), "ms": k, "plain_ms": p,
+                          "bound_ms": b_ms, "bound_by": by,
+                          "library_ms": None}
 
 
 def small_train_cfg():
     """tiny_turbo_occ in fp32 with nothing random in the step (dropout 0,
     grid mask off, float images) and no clipping, so card and CPU take the
     same step and p.grad holds the raw gradients."""
-    from occnet_tpu.config import apply_overrides, tiny_turbo_occ
+    from occnet_tpu_torch.config import apply_overrides, tiny_turbo_occ
     return apply_overrides(tiny_turbo_occ(), {
         "model.compute_dtype": "float32", "model.use_grid_mask": "false",
         "model.encoder.ffn_dropout": "0", "model.encoder.tsa.dropout": "0",
@@ -585,7 +652,8 @@ def phase_msda_kernels(torch, cfg, results):
               [(116, 200), (58, 100), (29, 50), (15, 25)], sca.num_points),
              ("TSA", tsa.num_bev_queue, m.bev_h * m.bev_w, tsa.num_heads,
               [(m.bev_h, m.bev_w)], tsa.num_points)]
-    ms = plain_ms = worst = 0.0
+    ms = plain_ms = worst = bound_ms = 0.0
+    bound_by = set()
     for name, N, Q, H, shapes, P in cases:
         L, V = len(shapes), sum(h * w for h, w in shapes)
         v32 = torch.randn(N, V, H, D, generator=gen, device=dev)
@@ -617,22 +685,29 @@ def phase_msda_kernels(torch, cfg, results):
             k, p = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc,
                                                           attn),
                             lambda: msda.msda_plain(v, shapes, loc, attn), 5)
-            nbytes = (v.numel() * v.element_size() + loc.numel() * 4
-                      + attn.numel() * 4 + got.numel() * v.element_size())
+            nb = nbytes(v, loc, attn) + got.numel() * v.element_size()
+            # every sample: 2x2 corners, mul + add per channel (an upper
+            # bound: out-of-level samples are skipped)
+            b_ms, by = least_time(nb, N * Q * H * D * L * P * 4 * 2)
             log(f"  msda {name} {dtype}: kernel {k:.4f} ms, plain {p:.4f} "
-                f"ms; compulsory {nbytes / 1e6:.1f} MB -> "
-                f"{nbytes / k / 1e9:.3f} TB/s "
-                f"({nbytes / k / 1e9 / HBM_TBS:.1%} of {HBM_TBS} TB/s)")
+                f"ms; compulsory {nb / 1e6:.1f} MB -> "
+                f"{nb / k / 1e9:.3f} TB/s "
+                f"({nb / k / 1e9 / HBM_TBS:.1%} of {HBM_TBS} TB/s); bound "
+                f"{b_ms:.4f} ms ({by})")
             if dtype == torch.bfloat16:
                 ms, plain_ms = ms + k, plain_ms + p
+                bound_ms += b_ms
+                bound_by.add(by)
     log(f"  msda per encoder layer (1 TSA + 1 SCA call, bf16): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["msda"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    results["msda"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": "+".join(
+                           sorted(bound_by)), "library_ms": None}
 
 
 def exact_cfg(name, **sca):
     """A named gather-mode config in fp32 or bf16 with SCA overrides."""
-    from occnet_tpu.config import base_occ, tiny_occ
+    from occnet_tpu_torch.config import base_occ, tiny_occ
     cfg = {"base_occ": base_occ, "tiny_occ": tiny_occ}[name]()
     m = cfg.model
     enc = dataclasses.replace(m.encoder, sca=dataclasses.replace(
@@ -824,11 +899,336 @@ def phase_serve_exact(torch, results):
         log(f"    {v:9.3f} ms  {k[:100]}")
 
 
+# the DCN layers of R101-DCN at full width (B = 6 cameras): name, input
+# (h, w, C), stride, launches per request
+DCN_SHAPES = [("layer3_0", 116, 200, 256, 2, 1),
+              ("layer3_1..22", 58, 100, 256, 1, 22),
+              ("layer4_0", 58, 100, 512, 2, 1),
+              ("layer4_1..2", 29, 50, 512, 1, 2)]
+
+
+def phase_dcn_kernels(torch, results):
+    from occnet_tpu_torch.ops import deform_conv as dc
+    from occnet_tpu_torch.ops.dcn_window import window_overflow
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = 6
+    per_req = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    worst = 0.0
+    for name, h, w, C, stride, count in DCN_SHAPES:
+        ho, wo = dc.out_size(h, w, stride)
+        x32 = torch.randn(B, h, w, C, generator=gen, device=dev)
+        # offsets N(0, 2^2) px with about 1 % at +/-30 px, mask U(0, 1)
+        off = torch.randn(B, ho, wo, 9, 2, generator=gen, device=dev) * 2.0
+        far = torch.rand(B, ho, wo, 9, 2, generator=gen, device=dev) < 0.01
+        off = torch.where(far, torch.sign(off) * 30.0, off).contiguous()
+        mask = torch.rand(B, ho, wo, 9, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            got = dc.deform_sample_cuda(x, off, mask, stride)
+            want = dc.deform_sample_plain(x, off, mask, stride)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, want)
+            if dtype == torch.bfloat16:
+                bad = bf16_step_apart(torch, got.float(), want.float())
+                tol = "one bf16 step"
+            else:
+                bad = int(err > DCN_F32_RTOL * x.abs().max().item())
+                tol = f"{DCN_F32_RTOL} x max|x|"
+            fin = torch.isfinite(got.float()).all().item()
+            log(f"  dcn {name} x {tuple(x.shape)} {dtype} stride {stride} -> "
+                f"cols {tuple(got.shape)}: max|kernel-plain| = {err:.3e} "
+                f"(tol {tol}), bitwise equal {same}, finite {fin}")
+            if bad or not fin:
+                raise RuntimeError(f"dcn kernel disagrees with plain ({name}, "
+                                   f"{dtype}): {err}")
+            worst = max(worst, err)
+            k, p = in_turns(torch, lambda: dc.deform_sample_cuda(
+                x, off, mask, stride), lambda: dc.deform_sample_plain(
+                x, off, mask, stride), 5)
+            # each sample: 4 corner weights (3 multiplies each) and, per
+            # channel, 4 multiply-adds
+            b_ms, by = least_time(nbytes(x, off, mask, got),
+                                  got.numel() * 8 + off.numel() // 2 * 12)
+            log(f"  dcn {name} {dtype}: kernel {k:.4f} ms, plain {p:.4f} ms; "
+                f"bound {b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it "
+                f"({nbytes(x, off, mask, got) / k / 1e9:.3f} TB/s)")
+            if dtype == torch.bfloat16:
+                per_req["ms"] += k * count
+                per_req["plain_ms"] += p * count
+                per_req["bound_ms"] += b_ms * count
+            del got, want
+        if stride == 1:
+            cg = int(window_overflow(off, ho, wo, DCN_RADIUS))
+            cc = int(window_overflow(off.cpu(), ho, wo, DCN_RADIUS))
+            log(f"  dcn {name} window certificate at R={DCN_RADIUS}: card "
+                f"{cg}, CPU {cc}")
+            if cg != cc:
+                raise RuntimeError("dcn certificate differs card vs CPU")
+        del x32, off, mask
+    log(f"  dcn per request (26 launches, bf16): kernel "
+        f"{per_req['ms']:.4f} ms, plain {per_req['plain_ms']:.4f} ms, bound "
+        f"{per_req['bound_ms']:.4f} ms (bytes); kernel at "
+        f"{per_req['bound_ms'] / per_req['ms']:.1%} of it")
+    results["dcn"] = {"max_abs_err": worst, **per_req, "bound_by": "bytes",
+                      "library_ms": None}
+
+
+def dcn_cfg(name, tiny=False, fp32=False):
+    """A named R101-DCN config; ``tiny`` puts its backbone on tiny_turbo_occ
+    (dense encoder) or tiny_occ (gather encoder, top-K sized for the ring
+    rig), ``fp32`` computes in float32."""
+    from occnet_tpu_torch import geometry
+    from occnet_tpu_torch.config import get_config
+    cfg = get_config(name)
+    if tiny:
+        base = get_config("tiny_turbo_occ" if cfg.model.encoder.mode ==
+                          "dense" else "tiny_occ")
+        m = dataclasses.replace(base.model, backbone=cfg.model.backbone)
+        if m.encoder.mode == "gather":
+            k = geometry.calibration_topk(m, ring_rig(m, 1))
+            m = dataclasses.replace(m, encoder=dataclasses.replace(
+                m.encoder, sca=dataclasses.replace(
+                    m.encoder.sca, max_queries_per_cam=k)))
+        cfg = dataclasses.replace(base, model=m)
+    if fp32:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32"))
+    return cfg
+
+
+def dcn_weights(torch, cfg, device, imgs, e2i, seed, randomize=False):
+    """The JAX-style init of ``cfg`` (every leaf random-filled with
+    ``randomize``), every DCN layer's conv_offset kernel drawn from
+    ``seed`` (the init's zero kernel would sample only integer positions),
+    then calibrated on these images so that no layer's |offset| exceeds
+    DCN_MAX_PX: within the R = 3 window, fractions and both signs
+    exercised.  Returns the model's state_dict (on the CPU)."""
+    from occnet_tpu_torch.convert import (calibrate_dcn_offsets,
+                                          from_jax_variables,
+                                          init_jax_style_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.data.pipeline import make_device_normalizer
+    from occnet_tpu_torch.models.detector import OccNet
+    v = init_jax_style_variables(cfg, seed=0)
+    if randomize:
+        v = randomize_variables(v, seed=2)
+    rng = np.random.RandomState(seed)
+    for blk in v["params"]["backbone"].values():
+        co = blk.get("conv2", {}).get("conv_offset")
+        if co is not None:
+            co["kernel"] = rng.randn(*co["kernel"].shape).astype(np.float32)
+    model = OccNet(cfg.model).to(device).eval()
+    model.load_state_dict(from_jax_variables(v))
+    x = make_device_normalizer(cfg.data)(torch.from_numpy(imgs).to(device))
+    calibrate_dcn_offsets(model, x, torch.from_numpy(e2i).to(device),
+                          DCN_MAX_PX)
+    return {k: t.cpu() for k, t in model.state_dict().items()}
+
+
+def dcn_radii(torch, pred, imgs, e2i):
+    """needed_radius of every DCN layer on one request (forward pre-hooks
+    recompute each layer's offsets; not timed)."""
+    from occnet_tpu_torch.ops.dcn_window import needed_radius
+    from occnet_tpu_torch.ops.deform_conv import ModulatedDeformConv
+    radii, spread, hooks = {}, {}, []
+
+    def probe(name, mod, inputs):
+        off, _ = mod.offset_and_mask(inputs[0])
+        radii[name] = int(needed_radius(off, *inputs[0].shape[2:]))
+        spread[name] = (off.abs().mean().item(), off.abs().max().item())
+
+    for name, mod in pred.model.backbone.named_modules():
+        if isinstance(mod, ModulatedDeformConv):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, i, n=name.split(".")[0]: probe(n, m, i)))
+    try:
+        pred(imgs, e2i)
+    finally:
+        for h in hooks:
+            h.remove()
+    return radii, spread
+
+
+def phase_dcn_parity(torch):
+    from occnet_tpu_torch.ops.deform_conv import DEFORM
+    from occnet_tpu_torch.serve import Predictor
+    for name in ("turbo_r101_dcn_occ", "r101_dcn_occ"):
+        cfg = dcn_cfg(name, tiny=True, fp32=True)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, backbone=dataclasses.replace(
+                cfg.model.backbone, dcn_mode="window")))
+        m = cfg.model
+        e2i = ring_rig(m, 1)
+        imgs = np.random.RandomState(9).randint(
+            0, 256, (1, m.num_cams, m.img_h, m.img_w, 3), dtype=np.uint8)
+        sd = dcn_weights(torch, cfg, "cpu", imgs, e2i, seed=3,
+                         randomize=True)
+        pg, pc = Predictor(cfg, sd, "cuda"), Predictor(cfg, sd, "cpu")
+        DEFORM.launches = 0
+        _, _, lg = pg(imgs, e2i, with_logits=True)
+        launches = DEFORM.launches
+        _, _, lc = pc(imgs, e2i, with_logits=True)
+        lg = lg.float().cpu()
+        err = (lg - lc).abs().max().item()
+        agree = (lg.argmax(-1) == lc.argmax(-1)).float().mean().item()
+        log(f"  tiny {m.backbone.type} DCN {m.backbone.dcn_mode} + "
+            f"{m.encoder.mode} encoder, fp32 {tuple(lg.shape)}: "
+            f"max|card-cpu| logits = {err:.3e} (atol {LOGIT_ATOL}), argmax "
+            f"agreement {agree:.5f}, |logits| max {lc.abs().max().item():.3f};"
+            f" dcn_window_overflow card {pg.dcn_window_overflow} cpu "
+            f"{pc.dcn_window_overflow}; sca_topk_overflow card "
+            f"{pg.sca_topk_overflow} cpu {pc.sca_topk_overflow}; "
+            f"deform_sample launches on the card {launches}")
+        if not (err <= LOGIT_ATOL and agree >= 0.99
+                and torch.isfinite(lg).all().item()
+                and pg.dcn_window_overflow == pc.dcn_window_overflow == 0
+                and pg.sca_topk_overflow == pc.sca_topk_overflow
+                and launches == 26):
+            raise RuntimeError(f"card and CPU disagree on tiny {name}")
+
+
+def dcn_split(torch, pred, imgs, e2i):
+    """One request with CUDA events at the trunk's bounds, each DCN layer's
+    bounds, and around its sampling kernel and certificate: returns ms of
+    (request, trunk, DCN offset conv, DCN sampling, DCN matmul, DCN
+    certificate)."""
+    from occnet_tpu_torch.ops import deform_conv as dc
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    def wrap(fn, label):
+        def go(*a, **k):
+            mark(label + ">")
+            out = fn(*a, **k)
+            mark(label + "<")
+            return out
+        return go
+
+    saved = dc.deform_sample, dc.window_overflow
+    dc.deform_sample = wrap(dc.deform_sample, "sample")
+    dc.window_overflow = wrap(dc.window_overflow, "cert")
+    hooks = [pred.model.backbone.register_forward_pre_hook(
+        lambda *_: mark("trunk>")),
+        pred.model.backbone.register_forward_hook(lambda *_: mark("trunk<"))]
+    for mod in pred.model.backbone.modules():
+        if isinstance(mod, dc.ModulatedDeformConv):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda *_: mark("dcn>")))
+            hooks.append(mod.register_forward_hook(lambda *_: mark("dcn<")))
+    try:
+        torch.cuda.synchronize()
+        mark("request>")
+        pred(imgs, e2i)
+        mark("request<")
+        torch.cuda.synchronize()
+    finally:
+        dc.deform_sample, dc.window_overflow = saved
+        for h in hooks:
+            h.remove()
+    t = {"offset conv": 0.0, "sampling": 0.0, "matmul": 0.0,
+         "certificate": 0.0}
+    key = {("dcn>", "sample>"): "offset conv", ("sample>", "sample<"):
+           "sampling", ("sample<", "cert>"): "matmul", ("sample<", "dcn<"):
+           "matmul", ("cert>", "cert<"): "certificate"}
+    for (a, ea), (b, eb) in zip(marks, marks[1:]):
+        if (a, b) in key:
+            t[key[(a, b)]] += ea.elapsed_time(eb)
+    ev = dict((label, e) for label, e in marks)
+    return (ev["request>"].elapsed_time(ev["request<"]),
+            ev["trunk>"].elapsed_time(ev["trunk<"]), t)
+
+
+def phase_serve_dcn(torch, name, results):
+    from occnet_tpu_torch.ops.deform_conv import DEFORM
+    from occnet_tpu_torch.ops.lift_cuda import LIFT
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.ops.tsa import TAP
+    from occnet_tpu_torch.serve import Predictor
+    cfg = dcn_cfg(name)
+    m = cfg.model
+    e2i = ring_rig(m, 1)
+    rng = np.random.RandomState(10)
+    reqs = [rng.randint(0, 256, (1, m.num_cams, 900, 1600, 3),
+                        dtype=np.uint8) for _ in range(REQUESTS + 2)]
+    t0 = time.perf_counter()
+    sd = dcn_weights(torch, cfg, "cuda", reqs[0], e2i, seed=11)
+    pred = Predictor(cfg, sd, "cuda")
+    del sd
+    log(f"  Predictor({name}, bf16, {m.backbone.type}, DCN "
+        f"{m.backbone.dcn_mode}, {m.encoder.mode} encoder) ready in "
+        f"{time.perf_counter() - t0:.1f} s (conv_offset calibrated to "
+        f"|offset| <= {DCN_MAX_PX} px on the first request)")
+    radii, spread = dcn_radii(torch, pred, reqs[1], e2i)
+    log(f"  needed_radius per DCN layer: {radii}")
+    log("  mean / max |offset| px per DCN layer: " + ", ".join(
+        f"{k} {a:.2f}/{b:.2f}" for k, (a, b) in spread.items()))
+    if max(radii.values()) > DCN_RADIUS:
+        raise RuntimeError(f"needed radius above {DCN_RADIUS}: {radii}")
+    pred(reqs[0], e2i)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense = m.encoder.mode == "dense"
+    kernels = {"dcn": DEFORM, **({"lift": LIFT, "tap": TAP} if dense
+                                 else {"msda": MSDA})}
+    if dense:
+        want = {"dcn": 26, "lift": m.num_feature_levels,
+                "tap": m.encoder.num_layers}
+    else:
+        ks = pred.model.head.transformer.encoder.layer0.cross_attn \
+            .topk_sizes(m.bev_h * m.bev_w)
+        want = {"dcn": 26, "msda": m.encoder.num_layers * (
+            1 + (len(set(ks)) or 1))}
+    lat, total = [], {k: 0 for k in kernels}
+    for imgs in reqs[1:REQUESTS + 1]:
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        occ, flow, logits = pred(imgs, e2i, with_logits=True)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        launches = {n: k.launches for n, k in kernels.items()}
+        for n in launches:
+            total[n] += launches[n]
+        if launches != want:
+            raise RuntimeError(f"launch counts {launches} != {want}")
+        if tuple(occ.shape) != (1, m.bev_w, m.bev_h, m.pillar_h) or \
+                tuple(flow.shape) != (1, m.bev_w, m.bev_h, m.pillar_h, 2):
+            raise RuntimeError(f"bad output shapes {occ.shape} {flow.shape}")
+        if not (torch.isfinite(logits).all() and torch.isfinite(flow).all()):
+            raise RuntimeError("non-finite logits or flow")
+        certs = (pred.dcn_window_overflow, pred.sca_topk_overflow)
+        if certs != ((0, None) if dense else (None, 0)):
+            raise RuntimeError(f"certificates (dcn, sca) {certs}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {REQUESTS} requests: latency ms {[round(x, 3) for x in lat]}, "
+        f"mean {sum(lat) / len(lat):.3f}; peak allocated {peak:.3f} GiB; "
+        f"launches per request {want}, in all {total}; "
+        f"dcn_window_overflow {pred.dcn_window_overflow}, sca_topk_overflow "
+        f"{pred.sca_topk_overflow}; card {nvidia_smi()}")
+    log(f"  occ classes used {int(occ.unique().numel())}, logits range "
+        f"[{logits.min().item():.3f}, {logits.max().item():.3f}]")
+    req, trunk, t = dcn_split(torch, pred, reqs[-1], e2i)
+    dcn = sum(t.values())
+    log(f"  one request split by CUDA events: total {req:.3f} ms; trunk "
+        f"{trunk:.3f} ms, of it the 26 DCN layers {dcn:.3f} ms (offset conv "
+        f"{t['offset conv']:.3f}, sampling kernel {t['sampling']:.3f}, "
+        f"matmul {t['matmul']:.3f}, certificate {t['certificate']:.3f}) and "
+        f"the rest of the trunk {trunk - dcn:.3f}; the rest of the request "
+        f"{req - trunk:.3f} ms")
+    return total["dcn"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
-    from occnet_tpu.config import turbo_occ
+    from occnet_tpu_torch.config import turbo_occ
     from occnet_tpu_torch.ops import _build
 
     # 1. device
@@ -873,6 +1273,22 @@ def main():
     phase_exact_parity(torch)
     log("[11 serve exact] base_occ full width, bf16, gather encoder")
     phase_serve_exact(torch, results)
+    torch.cuda.empty_cache()
+    log("[12 kernels (dcn)] DCNv2 sampling kernel vs plain at R101-DCN's "
+        "four DCN shapes, bf16 and f32")
+    phase_dcn_kernels(torch, results)
+    torch.cuda.empty_cache()
+    log("[13 dcn parity] tiny R101-DCN, fp32, window DCN, dense and gather "
+        "encoders, card vs CPU")
+    phase_dcn_parity(torch)
+    log("[14 serve turbo_r101_dcn_occ] full width, bf16, window DCN, dense "
+        "encoder")
+    results["dcn"]["launches"] = phase_serve_dcn(
+        torch, "turbo_r101_dcn_occ", results)
+    torch.cuda.empty_cache()
+    log("[15 serve r101_dcn_occ] full width, bf16, gather DCN, exact "
+        "encoder")
+    phase_serve_dcn(torch, "r101_dcn_occ", results)
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -895,7 +1311,16 @@ def main():
              source="occnet_tpu_torch/csrc/msda.cu",
              replaces="occnet_tpu/ops/msda_pallas.py:78,120,156",
              **results["msda"]),
+        dict(name="dcn", route="cuda",
+             source="occnet_tpu_torch/csrc/deform_conv.cu",
+             replaces="occnet_tpu/ops/dcn_window.py:133,174",
+             **results["dcn"]),
     ]
+    keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
+    for k in kernels:
+        if not keys <= k.keys():
+            raise RuntimeError(f"kernel {k['name']} lacks {keys - k.keys()}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

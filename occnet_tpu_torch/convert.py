@@ -20,7 +20,7 @@ JAX -> port is a straight transpose; there is no RGB flip of conv1 (that flip
 belongs to torchvision -> JAX, `occnet_tpu/utils/torch_convert.py`).
 
 `init_jax_style_variables` builds the JAX package's tree for a ResNet config
-(dense or gather encoder) with numpy, using the JAX initialisers, so the port
+(with or without DCN stages; dense or gather encoder) with numpy, using the JAX initialisers, so the port
 runs at the activation scale the JAX package runs at without importing JAX.
 `randomize_variables` fills the zero/identity-initialised leaves (attention
 weights, biases, norm scales, BN statistics) with random values, so a
@@ -34,7 +34,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from occnet_tpu.config import ModelConfig, OccNetConfig
+from occnet_tpu_torch.config import ModelConfig
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 _KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
@@ -99,12 +99,13 @@ def init_jax_style_variables(cfg, seed: int = 0) -> dict:
     """The flax init tree of `occnet_tpu.models.detector.OccNet` for a
     ResNet ``cfg`` (OccNetConfig or ModelConfig) with a dense or gather
     encoder, drawn with numpy from ``seed`` with the same initialisers:
-    he_normal for ResNet convs, xavier_uniform for FPN convs / Dense /
-    Conv3d, zeros for `attention_weights`, `sampling_offsets` kernels and
-    biases, the radial grid (`radial_offset_bias`) for `sampling_offsets`
+    he_normal for ResNet convs (the DCN layers' weights included),
+    xavier_uniform for FPN convs / Dense / Conv3d, zeros for the DCN
+    layers' `conv_offset`, for `attention_weights`, `sampling_offsets`
+    kernels and biases, the radial grid (`radial_offset_bias`) for `sampling_offsets`
     biases, normal(1) for embeddings, uniform[0, 1) for positional tables,
     identity norms and BN statistics."""
-    m: ModelConfig = cfg.model if isinstance(cfg, OccNetConfig) else cfg
+    m: ModelConfig = getattr(cfg, "model", cfg)
     from occnet_tpu_torch.models.attention import radial_offset_bias
     from occnet_tpu_torch.models.resnet import STAGE_BLOCKS, stage_channels
     from occnet_tpu_torch.ops.tsa import TSA_TAPS
@@ -156,6 +157,14 @@ def init_jax_style_variables(cfg, seed: int = 0) -> dict:
                                 ("conv2", (3, 3, mid, mid)),
                                 ("conv3", (1, 1, mid, mid * 4))):
                 _set(params, f"{p}/{name}/kernel", he_normal(shape))
+            if m.backbone.dcn_stages[stage]:
+                # DCNv2: conv2/kernel is the deformable conv's weight, and
+                # its zero-initialised conv_offset predicts 2 * 9 offsets
+                # and 9 mask logits
+                _set(params, f"{p}/conv2/conv_offset/kernel",
+                     np.zeros((3, 3, mid, 27), f32))
+                _set(params, f"{p}/conv2/conv_offset/bias",
+                     np.zeros(27, f32))
             norm(f"{p}/bn1", mid, True)
             norm(f"{p}/bn2", mid, True)
             norm(f"{p}/bn3", mid * 4, True)
@@ -267,3 +276,44 @@ def randomize_variables(variables, seed: int) -> dict:
 
     return {c: fill(variables[c], c) for c in ("params", "batch_stats")
             if c in variables}
+
+
+def calibrate_dcn_offsets(model: torch.nn.Module, img: torch.Tensor,
+                          ego2img: torch.Tensor, max_px: float,
+                          max_logit: float = 4.0) -> Dict[str, Tuple]:
+    """Rescale, in place, every DCN layer's conv_offset kernel so that the
+    largest |offset| the layer predicts for this input is ``max_px`` and
+    its largest |mask logit| ``max_logit``, layer by layer in forward order
+    (each layer sees the calibrated layers before it).  For random-weight
+    runs: the init's zero kernel samples only integer positions, and a
+    random kernel on a random trunk's large activations sends every sample
+    far off the image and saturates the mask.  Returns {conv_offset
+    weight's state_dict key: (offset factor, mask factor)}, so the same
+    factors can scale another copy of the weights."""
+    from occnet_tpu_torch.ops.deform_conv import TAPS, ModulatedDeformConv
+    factors: Dict[str, Tuple] = {}
+    hooks = []
+
+    def calibrate(name, mod, inputs):
+        off, mask = mod.offset_and_mask(inputs[0])
+        logit = torch.logit(mask.double())
+        f = []
+        for rows, out, top in ((slice(0, 2 * TAPS), off, max_px),
+                               (slice(2 * TAPS, 3 * TAPS), logit, max_logit)):
+            bias = mod.conv_offset.bias[rows].double()
+            rest = (out.reshape(-1, bias.numel()) - bias).abs().max().item()
+            f.append((top - bias.abs().max().item()) / max(rest, 1e-30))
+            mod.conv_offset.weight[rows] *= f[-1]
+        factors[name + ".conv_offset.weight"] = tuple(f)
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, ModulatedDeformConv):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, i, n=name: calibrate(n, m, i)))
+    try:
+        with torch.no_grad():
+            model(img, ego2img)
+    finally:
+        for h in hooks:
+            h.remove()
+    return factors

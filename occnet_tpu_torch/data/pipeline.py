@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from occnet_tpu.config import DataConfig
+from occnet_tpu_torch.config import DataConfig
 
 Draws = Dict[str, torch.Tensor]
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from occnet_tpu.config import SCAConfig, TSAConfig
+from occnet_tpu_torch.config import SCAConfig, TSAConfig
 from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.ops.msda import multi_scale_deformable_attention
 

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from occnet_tpu.config import SCAConfig, TSAConfig
+from occnet_tpu_torch.config import SCAConfig, TSAConfig
 from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.ops.tsa import TSA_TAPS, tap_attention
 

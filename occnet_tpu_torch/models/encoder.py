@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from occnet_tpu.config import EncoderConfig
+from occnet_tpu_torch.config import EncoderConfig
 from occnet_tpu_torch.geometry import (
     bev_reference_points_2d,
     bev_reference_points_3d,

@@ -10,7 +10,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from occnet_tpu.config import FLOW_CLASS_NAMES, LossConfig, ModelConfig
+from occnet_tpu_torch.config import FLOW_CLASS_NAMES, LossConfig, ModelConfig
 from occnet_tpu_torch.models.positional import LearnedPositionalEncoding2D
 from occnet_tpu_torch.models.transformer_occ import TransformerOcc
 

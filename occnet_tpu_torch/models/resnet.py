@@ -4,7 +4,10 @@
 padding: 7x7/2 pad 3 stem, 3/2 pad 1 max pool with -inf padding.  The norm is
 `FrozenBatchNorm` (running statistics always, `norm_eval=True`) or
 `TrainableBatchNorm` (batch statistics in training, `norm_eval=False`), both
-folded into one multiply-add in the compute dtype.  `frozen_stages` runs the
+folded into one multiply-add in the compute dtype.  With `dcn_stages`, the 3x3
+conv of those stages' bottlenecks is a modulated deformable conv
+(`ops/deform_conv.ModulatedDeformConv`, R101-DCN), whose sampling is the
+CUDA kernel `csrc/deform_conv.cu`.  `frozen_stages` runs the
 stem and stages <= frozen_stages under `torch.no_grad()`, the counterpart of
 the JAX package's `stop_gradient` (their parameters get no gradient and their
 activations stay out of the autograd graph).  Convolutions are cuDNN
@@ -15,18 +18,31 @@ Tensors are NCHW inside.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from occnet_tpu_torch.models.layers import Conv2d
+from occnet_tpu_torch.ops.deform_conv import ModulatedDeformConv
 
 STAGE_BLOCKS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+
+
+def dcn_layer_indices(depth: int, dcn_stages: Sequence[bool]
+                      ) -> Dict[str, int]:
+    """{block name -> flat DCN-layer index} over every DCN block in
+    definition order: the indexing of `dcn_window_radii`."""
+    out = {}
+    for stage, n in enumerate(STAGE_BLOCKS[depth]):
+        if dcn_stages[stage]:
+            for b in range(n):
+                out[f"layer{stage + 1}_{b}"] = len(out)
+    return out
 
 
 class FrozenBatchNorm(nn.Module):
@@ -77,15 +93,26 @@ class TrainableBatchNorm(FrozenBatchNorm):
 
 
 class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 with identity / projection shortcut; with
+    ``dcn`` the 3x3 is a `ModulatedDeformConv` in ``dcn_mode``.  `forward`
+    returns (output, the DCN layer's window certificate or None)."""
+
     def __init__(self, in_ch: int, mid: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, norm_eval: bool = True):
+                 dtype: torch.dtype = torch.float32, norm_eval: bool = True,
+                 dcn: bool = False, dcn_mode: str = "gather",
+                 dcn_window_radius: int = 3):
         super().__init__()
         out_ch = mid * 4
         bn = FrozenBatchNorm if norm_eval else TrainableBatchNorm
         self.conv1 = Conv2d(in_ch, mid, 1, bias=False, dtype=dtype)
         self.bn1 = bn(mid, dtype=dtype)
-        self.conv2 = Conv2d(mid, mid, 3, stride=stride, bias=False,
-                            dtype=dtype)
+        self.dcn = dcn
+        if dcn:
+            self.conv2 = ModulatedDeformConv(mid, mid, stride, dcn_mode,
+                                             dcn_window_radius, dtype)
+        else:
+            self.conv2 = Conv2d(mid, mid, 3, stride=stride, bias=False,
+                                dtype=dtype)
         self.bn2 = bn(mid, dtype=dtype)
         self.conv3 = Conv2d(mid, out_ch, 1, bias=False, dtype=dtype)
         self.bn3 = bn(out_ch, dtype=dtype)
@@ -95,14 +122,20 @@ class Bottleneck(nn.Module):
                                           bias=False, dtype=dtype)
             self.downsample_bn = bn(out_ch, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         identity = x
         y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y), train))
+        overflow = None
+        if self.dcn:
+            y, overflow = self.conv2(y)
+        else:
+            y = self.conv2(y)
+        y = F.relu(self.bn2(y, train))
         y = self.bn3(self.conv3(y), train)
         if self.has_downsample:
             identity = self.downsample_bn(self.downsample_conv(x), train)
-        return F.relu(y + identity)
+        return F.relu(y + identity), overflow
 
 
 def stage_channels(out_indices: Sequence[int]) -> Tuple[int, ...]:
@@ -111,11 +144,22 @@ def stage_channels(out_indices: Sequence[int]) -> Tuple[int, ...]:
 
 
 class ResNet(nn.Module):
-    """Returns the feature maps named by out_indices, NCHW."""
+    """Returns (the feature maps named by out_indices, NCHW; the window
+    certificate summed over the DCN layers that carry one, a 0-d int64
+    tensor, or None when none does).
+
+    ``dcn_stages`` switches DCNv2 on per stage (R101-DCN: (F, F, T, T)).
+    ``dcn_mode`` "window" gives the layers that the JAX package runs on its
+    window kernel a certificate at their radius: ``dcn_window_radii[i]``
+    for the i-th DCN block (`dcn_layer_indices`) where given, else
+    ``dcn_window_radius``."""
 
     def __init__(self, depth: int = 50, out_indices: Tuple[int, ...] = (1, 2, 3),
                  dtype: torch.dtype = torch.float32, frozen_stages: int = 1,
-                 norm_eval: bool = True):
+                 norm_eval: bool = True,
+                 dcn_stages: Sequence[bool] = (False, False, False, False),
+                 dcn_mode: str = "gather", dcn_window_radius: int = 3,
+                 dcn_window_radii: Sequence[int] = ()):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
@@ -123,14 +167,19 @@ class ResNet(nn.Module):
         self.bn1 = (FrozenBatchNorm if norm_eval else TrainableBatchNorm)(
             64, dtype=dtype)
         self.stages: List[List[str]] = []
+        dcn_idx = dcn_layer_indices(depth, dcn_stages)
         in_ch, mid = 64, 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
             names = []
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"layer{stage + 1}_{b}"
-                self.add_module(name, Bottleneck(in_ch, mid, stride, dtype,
-                                                 norm_eval))
+                i = dcn_idx.get(name)
+                radius = (dcn_window_radii[i] if i is not None
+                          and i < len(dcn_window_radii) else dcn_window_radius)
+                self.add_module(name, Bottleneck(
+                    in_ch, mid, stride, dtype, norm_eval, i is not None,
+                    dcn_mode, radius))
                 names.append(name)
                 in_ch = mid * 4
             self.stages.append(names)
@@ -142,15 +191,17 @@ class ResNet(nn.Module):
                 else contextlib.nullcontext())
 
     def forward(self, x: torch.Tensor, train: bool = False
-                ) -> List[torch.Tensor]:
+                ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         with self._frozen(-1):
             x = F.relu(self.bn1(self.conv1(x), train))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
-        outs = []
+        outs, overflows = [], []
         for stage, names in enumerate(self.stages):
             with self._frozen(stage):
                 for name in names:
-                    x = getattr(self, name)(x, train)
+                    x, over = getattr(self, name)(x, train)
+                    if over is not None:
+                        overflows.append(over)
             if stage in self.out_indices:
                 outs.append(x)
-        return outs
+        return outs, (sum(overflows) if overflows else None)

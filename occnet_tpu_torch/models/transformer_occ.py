@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from occnet_tpu.config import ModelConfig
+from occnet_tpu_torch.config import ModelConfig
 from occnet_tpu_torch.models.encoder import BEVFormerEncoder
 from occnet_tpu_torch.models.layers import Conv3d, Linear
 from occnet_tpu_torch.ops.planar_lift import lift_and_average

@@ -4,15 +4,23 @@ counterpart of the inference body of
 `occnet_tpu.training.eval_loop.run_evaluation`.
 
 Both encoder modes serve: dense (`turbo_occ`: the planar lift and the TSA
-tap attention) and gather (`base_occ`: deformable TSA and SCA).  On a CUDA
-device their sampling runs as the hand-written kernels of
+tap attention) and gather (`base_occ`: deformable TSA and SCA), on a
+ResNet-50 or ResNet-101-DCN trunk (`turbo_r101_dcn_occ`, `r101_dcn_occ`).
+On a CUDA device their sampling runs as the hand-written kernels of
 `occnet_tpu_torch/csrc/` (built at first use); on the CPU as their plain
 PyTorch versions.
 
-In gather mode a request raises when the SCA certificate `sca_topk_overflow`
-is nonzero: the static top-K dropped visible queries, so the answer would not
-be the exact model's (the JAX inference entry, `tools/test.py`, hard-fails on
-it too).  Size K for the rig with `geometry.calibration_topk`.
+A request raises when a certificate is nonzero, as the JAX inference entry
+(`tools/test.py`) hard-fails on it:
+
+- `sca_topk_overflow` (gather encoder): the static top-K dropped visible
+  queries, so the answer would not be the exact model's.  Size K for the
+  rig with `geometry.calibration_topk`.
+- `dcn_window_overflow` (DCN in window mode): that many contributing DCN
+  samples lie outside the window radius, where the JAX window model zeroes
+  them.  The port samples them exactly, so its answer would differ from the
+  JAX window model's.  Raise `dcn_window_radius` or `dcn_window_radii`
+  (per DCN layer) until it is 0.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from occnet_tpu.config import OccNetConfig
+from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.data.pipeline import make_device_normalizer
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.models.head import get_occ
@@ -39,8 +47,9 @@ class Predictor:
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.normalize = make_device_normalizer(cfg.data)
-        # the last request's certificate (gather mode; None in dense mode)
+        # the last request's certificates (None where the config has none)
         self.sca_topk_overflow: Optional[int] = None
+        self.dcn_window_overflow: Optional[int] = None
 
     @torch.inference_mode()
     def __call__(self, images: ArrayLike, ego2img: ArrayLike,
@@ -57,14 +66,21 @@ class Predictor:
             raise ValueError(f"padded images are {tuple(x.shape[-3:-1])}, "
                              f"the config expects {(m.img_h, m.img_w)}")
         outs = self.model(x, e2i)
-        overflow = outs.get("sca_topk_overflow")
-        self.sca_topk_overflow = None if overflow is None else int(overflow)
+        self.sca_topk_overflow, self.dcn_window_overflow = (
+            None if outs.get(k) is None else int(outs[k])
+            for k in ("sca_topk_overflow", "dcn_window_overflow"))
         if self.sca_topk_overflow:
             raise RuntimeError(
                 f"sca_topk_overflow={self.sca_topk_overflow}: the SCA top-K "
                 f"(max_queries_per_cam / per_cam_topk) dropped visible "
                 f"queries of this rig; size it with "
                 f"occnet_tpu_torch.geometry.calibration_topk")
+        if self.dcn_window_overflow:
+            raise RuntimeError(
+                f"dcn_window_overflow={self.dcn_window_overflow}: DCN samples "
+                f"lie outside the window radius, where the JAX window model "
+                f"zeroes them; raise model.backbone.dcn_window_radius (or "
+                f"the per-layer dcn_window_radii)")
         occ_cls, flow = get_occ(outs)
         return (occ_cls, flow, outs["occ"]) if with_logits else (occ_cls,
                                                                   flow)

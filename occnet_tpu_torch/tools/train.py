@@ -5,8 +5,9 @@
     python -m occnet_tpu_torch.tools.train --config tiny_turbo_occ \
         --synthetic-data --max-steps 3 --device cpu
 
-Config selection and dotted ``--set KEY=VAL`` overrides as in the JAX CLI.
-Weights are random, drawn with the JAX package's initialisers from
+The device is the card unless ``--device cpu`` says otherwise: without a
+CUDA device the CLI exits and names that flag.  Config selection and dotted
+``--set KEY=VAL`` overrides as in the JAX CLI.  Weights are random, drawn with the JAX package's initialisers from
 ``--seed``.  Only synthetic data is ported: one random batch (uint8 images on
 the ring rig, random labels and flow) from ``--seed``, reused every step.
 Logs loss, grad_norm and lr every ``--log-interval`` steps (default every
@@ -43,8 +44,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="train on one random batch (no dataset on disk)")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; the CPU only with "
+                        "--device cpu)")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VAL",
                    help="dotted config overrides")
     return p.parse_args(argv)
@@ -96,7 +98,7 @@ def to_device(batch: Dict[str, np.ndarray], device
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    from occnet_tpu.config import apply_overrides, get_config
+    from occnet_tpu_torch.config import apply_overrides, get_config
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
     from occnet_tpu_torch.training import checkpoint
@@ -110,8 +112,10 @@ def main(argv: Optional[Sequence[str]] = None):
     if not args.synthetic_data:
         raise SystemExit("occnet_tpu_torch trains on --synthetic-data only; "
                          "the dataset loaders are not ported yet")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available()
-                                          else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("occnet_tpu_torch.tools.train: no CUDA device is "
+                         "available; pass --device cpu to train on the CPU")
     work_dir = args.work_dir or os.path.join("work_dirs", "torch_" +
                                              args.config)
     os.makedirs(work_dir, exist_ok=True)

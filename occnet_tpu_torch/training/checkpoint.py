@@ -10,7 +10,7 @@ import os
 
 import torch
 
-from occnet_tpu.config import OccNetConfig
+from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.training.train import TrainState
 
 

@@ -27,7 +27,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from occnet_tpu.config import OccNetConfig
+from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.data.pipeline import make_device_train_augmenter
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.models.head import occ_flow_loss

@@ -153,15 +153,18 @@ def test_predictor_serves_small_config(setup):
 
 def test_port_imports_no_jax():
     """Importing the port, running a tiny forward in each encoder mode
-    (dense and gather) and one CPU train step through
-    `occnet_tpu_torch.training` needs no jax: with `import jax`/`flax` made
-    to fail, all still run, and no jax module is loaded afterwards."""
+    (dense and gather), a tiny R101-DCN window-mode forward and one CPU
+    train step through `occnet_tpu_torch.training` needs neither jax nor
+    the JAX package: with `import jax`/`flax`/`occnet_tpu` made to fail,
+    all still run (the config comes from `occnet_tpu_torch.config`), and
+    no jax or `occnet_tpu` module is loaded afterwards."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'jaxlib'):\n"
+        "for name in ('jax', 'flax', 'jaxlib', 'occnet_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import dataclasses, numpy as np, torch\n"
-        "from occnet_tpu.config import tiny_turbo_occ\n"
+        "from occnet_tpu_torch.config import tiny_turbo_occ, \\\n"
+        "    turbo_r101_dcn_occ\n"
         "import occnet_tpu_torch.serve as s, occnet_tpu_torch.convert as c\n"
         "cfg = tiny_turbo_occ()\n"
         "m = dataclasses.replace(cfg.model, img_h=32, img_w=32, bev_h=4,\n"
@@ -181,6 +184,13 @@ def test_port_imports_no_jax():
         "    c.init_jax_style_variables(g, 0)), 'cpu')\n"
         "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
         "assert occ.shape == (1, 4, 4, 2)\n"
+        "r = turbo_r101_dcn_occ()\n"
+        "r = dataclasses.replace(r, model=dataclasses.replace(m,\n"
+        "    backbone=r.model.backbone))\n"
+        "p = s.Predictor(r, c.from_jax_variables(\n"
+        "    c.init_jax_style_variables(r, 0)), 'cpu')\n"
+        "occ, flow = p(np.zeros((1, 2, 32, 32, 3), np.uint8), e)\n"
+        "assert occ.shape == (1, 4, 4, 2) and p.dcn_window_overflow == 0\n"
         "from occnet_tpu_torch.training import create_train_state, \\\n"
         "    make_train_step\n"
         "st = create_train_state(cfg, c.from_jax_variables(\n"
@@ -194,7 +204,7 @@ def test_port_imports_no_jax():
         "met = make_train_step(cfg)(st, batch)\n"
         "assert st.step == 1 and np.isfinite(float(met['loss']))\n"
         "bad = [k for k, m in sys.modules.items() if m is not None and "
-        "k.split('.')[0] in ('jax', 'flax', 'jaxlib')]\n"
+        "k.split('.')[0] in ('jax', 'flax', 'jaxlib', 'occnet_tpu')]\n"
         "assert not bad, bad\n"
         "print('NOJAX OK')\n")
     env = {k: val for k, val in os.environ.items()

@@ -48,7 +48,9 @@ def test_resnet50_fpn_matches_jax():
     _load(trunk, v)
     with torch.inference_mode():
         x = torch.from_numpy(img).permute(0, 3, 1, 2)
-        outs = trunk.neck(trunk.backbone(x))
+        feats, overflow = trunk.backbone(x)
+        assert overflow is None                 # no DCN layer
+        outs = trunk.neck(feats)
     assert [tuple(o.shape[2:]) for o in outs] == [(8, 12), (4, 6), (2, 3),
                                                  (1, 2)]
     for o, r in zip(outs, ref):
