@@ -46,6 +46,22 @@ Phases (each raises on failure, so any failure exits nonzero):
  15. serve r101_dcn_occ  the same with gather DCN and the exact encoder:
               26 deform_sample + 8 msda launches a request,
               sca_topk_overflow 0
+ 16. kernels (eval)  pass-2 from a tmp slab (Pallas #7) vs its plain
+              version at the bench tool's shapes (one bf16 step), with a
+              dense-hat bmm as the library yardstick; the per-ray DDA on
+              one full-width synthetic scene (6 x 928 x 1600 rays, 420
+              steps) and the fan DDA at the eval shape (2 grids x 8 origins
+              x 360 x 39 rays, 200 x 200 x 16) vs their plain versions
+              (coords and hits bitwise); then the bench tool's entry
+ 17. eval parity  synth_tiny_turbo_occ in fp32, card vs CPU: rendered
+              views (share of differing pixels <= 1e-3), GT-vs-GT RayIoU 1,
+              metric counts of the same grids bitwise, a random-weight
+              model's argmax agreement (>= 99 %) and run_evaluation scores
+ 18. eval turbo_occ  the train CLI in process: 4 full-width bf16 steps on
+              4 synthetic scenes rendered on the card, then run_evaluation
+              on 8 val scenes (finite RayIoU); GT-vs-GT RayIoU 1 on a val
+              frame, 6 DDA launches a scene, 4 lift + 4 tap + 1 fan
+              launches a frame, a per-frame split by CUDA events
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 larger of its compulsory bytes over 3.35 TB/s and its fp32 operations over
 67 TFLOP/s), the nvidia-smi line and {"ok": true, "device": {...}}.  Needs
@@ -80,6 +96,14 @@ FP32_TFLOPS = 67.0       # H100 SXM fp32 peak outside the tensor cores
 DCN_F32_RTOL = 1e-6
 DCN_RADIUS = 3           # the served window radius of turbo_r101_dcn_occ
 DCN_MAX_PX = 2.5         # largest |offset| after calibration: floor in [-3, 2]
+# the marchers: kernel and plain version take the same fp32 operations, so
+# distances are expected bitwise; the bound allows 1e-6 relative
+DIST_RTOL = 1e-6
+PIXEL_MISMATCH = 1e-3    # rendered views, card vs CPU (exp may differ an ulp)
+# a DDA step and a fan-column crossing cost a handful of fp32 operations
+# (compares, a multiply-add, a division per z test)
+DDA_OPS_PER_STEP = 5
+FAN_OPS_PER_CROSSING = 15
 REQUESTS = 3
 TRAIN_STEPS = 3
 
@@ -1224,6 +1248,366 @@ def phase_serve_dcn(torch, name, results):
     return total["dcn"]
 
 
+def compare_marches(torch, name, got, want):
+    """coords and hits bitwise, dist to DIST_RTOL; returns max |d dist|."""
+    (dk, ck, hk), (dp, cp, hp) = got, want
+    torch.cuda.synchronize()
+    err = (dk - dp).abs().max().item()
+    rel = ((dk - dp).abs() / dp.abs().clamp(min=1e-6)).max().item()
+    same = torch.equal(ck, cp) and torch.equal(hk, hp)
+    log(f"  {name}: coords and hits bitwise equal {same}; dist max |d| "
+        f"{err:.3e}, max rel {rel:.3e} (tol {DIST_RTOL}), bitwise "
+        f"{torch.equal(dk, dp)}; hits {int(hk.sum())} of {hk.numel()}")
+    if not (same and rel <= DIST_RTOL):
+        raise RuntimeError(f"{name} kernel disagrees with its plain version")
+    return err
+
+
+def phase_eval_kernels(torch, cfg, results):
+    from occnet_tpu_torch.data import synthetic as syn
+    from occnet_tpu_torch.evaluation.ray_metrics import (fan_parameters,
+                                                         generate_lidar_rays)
+    from occnet_tpu_torch.ops import lift_pass2 as lp
+    from occnet_tpu_torch.ops import ray_march as rm
+    from occnet_tpu_torch.ops import ray_march_vec as rv
+    from occnet_tpu_torch.tools import bench_lift_passes as blp
+    dev = torch.device("cuda")
+
+    # pass-2 from a tmp slab (Pallas #7) at the bench tool's shapes
+    p = blp.pass2_inputs(dev)
+    args = (p["pos2A"], p["pos2B"], p["inv_count"], p["tmpA"], p["tmpB"],
+            blp.ZR, blp.BEV_H)
+    ko = lp.lift_pass2_cuda(*args).float()
+    po = lp.lift_pass2_plain(*args).float()
+    torch.cuda.synchronize()
+    bad = bf16_step_apart(torch, ko, po)
+    err = (ko - po).abs().max().item()
+    log(f"  lift_pass2 tmpA {tuple(p['tmpA'].shape)} tmpB "
+        f"{tuple(p['tmpB'].shape)} -> {tuple(ko.shape)} bf16: "
+        f"max|kernel-plain| = {err:.3e}, bitwise {torch.equal(ko, po)}, "
+        f"{bad} elements beyond one bf16 step, finite "
+        f"{torch.isfinite(ko).all().item()}")
+    if bad or not torch.isfinite(ko).all().item():
+        raise RuntimeError("lift_pass2 kernel disagrees with plain")
+    k, pl = in_turns(torch, lambda: lp.lift_pass2_cuda(*args),
+                     lambda: lp.lift_pass2_plain(*args), 3)
+    # compulsory bytes: the tmp rows a nonzero weight reaches, pos2 of the
+    # real rows, inv_count and the output; 2 operations per tap and channel
+    taps = rows = 0
+    C = p["tmpA"].shape[3]
+    for pos, K in ((p["pos2A"], blp.W_PAD), (p["pos2B"], blp.H_PAD)):
+        pos = pos[:blp.ZR]
+        k0 = torch.floor(pos).long()
+        hit = torch.zeros(blp.ZR, blp.A, K, dtype=torch.bool, device=dev)
+        for dk in (0, 1):
+            kk = k0 + dk
+            live = (kk >= 0) & (kk < K) & (lp._hat_bf16(pos, kk) != 0)
+            taps += int(live.sum())
+            zr, a, m = torch.nonzero(live, as_tuple=True)
+            hit[zr, a, kk[zr, a, m]] = True
+        rows += int(hit.sum())
+    nb = rows * C * 2 + 2 * blp.ZR * blp.A * blp.M * 4 \
+        + nbytes(p["inv_count"]) + ko.numel() * 2
+    b_ms, by = least_time(nb, taps * C * 2)
+    # the TPU kernel's contraction as one library call: the dense bf16 hat
+    # weights (A * (w + h), M) of every zr against the tmp slab
+    hats = []
+    for pos, K in ((p["pos2A"], blp.W_PAD), (p["pos2B"], blp.H_PAD)):
+        kk = torch.arange(K, device=dev, dtype=torch.float32)
+        w = (1.0 - (pos[:blp.ZR, :, :, None] - kk).abs()).clamp(min=0.0)
+        hats.append(w.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(
+            blp.ZR, blp.M, -1))
+        del w
+    W_all = torch.cat(hats, dim=2)
+    del hats
+    T_all = torch.cat([p["tmpA"][:blp.ZR].reshape(blp.ZR, -1, C),
+                       p["tmpB"][:blp.ZR].reshape(blp.ZR, -1, C)], dim=1)
+    dense = (torch.bmm(W_all, T_all).float()
+             * p["inv_count"][:, 0].repeat(blp.Z, 1)[..., None])
+    dense_bad = bf16_step_apart(torch, ko, dense.to(torch.bfloat16).float())
+    lib = cuda_ms(torch, lambda: torch.bmm(W_all, T_all), 3)
+    log(f"  lift_pass2: kernel {k:.4f} ms, plain {pl:.4f} ms, library "
+        f"bmm {tuple(W_all.shape)} x {tuple(T_all.shape)} {lib:.4f} ms; "
+        f"dense form vs kernel: {dense_bad} elements beyond one bf16 step; "
+        f"{rows} tmp rows reached, {nb / 1e6:.1f} MB compulsory -> bound "
+        f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
+    if dense_bad:
+        raise RuntimeError("lift_pass2 kernel disagrees with the dense form")
+    results["lift_pass2"] = {"max_abs_err": err, "ms": k, "plain_ms": pl,
+                             "bound_ms": b_ms, "bound_by": by,
+                             "library_ms": lib}
+    del W_all, T_all, dense, ko, po, p, args
+    torch.cuda.empty_cache()
+
+    # per-ray DDA: one full-width synthetic scene through the ring rig
+    m = cfg.model
+    occ_size = tuple(cfg.data.occ_size)
+    sem, _ = syn.make_scene(0, occ_size)
+    rig = syn.ring_camera_rig(m.num_cams, (m.img_h, m.img_w))
+    vs = (m.pc_range[3] - m.pc_range[0]) / occ_size[0]
+    dirs, o_vox = syn.camera_rays(rig["R"], rig["t"], rig["K"],
+                                  (m.img_h, m.img_w), m.pc_range, vs, dev)
+    occ = torch.from_numpy(sem != syn.FREE_ID).to(dev)
+    steps = sum(occ_size) + 4
+    R = dirs.shape[1]
+    origins = [torch.from_numpy(o).to(dev)[None].expand(R, 3) for o in o_vox]
+
+    def scene(fn):
+        return lambda: [fn(occ, o, d, steps) for o, d in zip(origins, dirs)]
+
+    got, want = scene(rm.dda_raymarch_cuda)(), scene(rm.dda_raymarch_plain)()
+    err = max(compare_marches(torch, f"dda camera {c}", g, w)
+              for c, (g, w) in enumerate(zip(got, want)))
+    k, pl = in_turns(torch, scene(rm.dda_raymarch_cuda),
+                     scene(rm.dda_raymarch_plain), 1)
+    # steps this run's rays take: the voxels between start and end, + 1
+    n_steps = sum(int(((c - torch.floor(o).int()).abs().sum(1) + 1).sum())
+                  for (_, c, _), o in zip(got, origins))
+    nb = nbytes(dirs) + occ.numel() + R * m.num_cams * (4 + 12 + 1)
+    b_ms, by = least_time(nb, n_steps * DDA_OPS_PER_STEP)
+    log(f"  dda scene {m.num_cams} x {m.img_h} x {m.img_w} rays, grid "
+        f"{occ_size}, {steps} steps: kernel {k:.4f} ms, plain {pl:.4f} ms; "
+        f"{n_steps / (R * m.num_cams):.1f} steps a ray; bound {b_ms:.4f} ms "
+        f"({by}), kernel at {b_ms / k:.1%} of it")
+    results["ray_march_dda"] = {"max_abs_err": err, "ms": k, "plain_ms": pl,
+                                "bound_ms": b_ms, "bound_by": by,
+                                "library_ms": None}
+    del got, want, dirs, origins
+    torch.cuda.empty_cache()
+
+    # fan DDA at the eval shape: prediction and GT grids, 8 origins
+    rng = np.random.RandomState(12)
+    gt, _ = syn.make_scene(1, occ_size)
+    pred = gt.copy()
+    flip = rng.rand(*occ_size) < 0.01
+    pred[flip] = rng.randint(0, syn.FREE_ID + 1, int(flip.sum()))
+    occs = torch.from_numpy(np.stack([pred, gt]) != syn.FREE_ID).to(dev)
+    o_m = np.concatenate([rng.uniform(-30, 30, (8, 2)),
+                          rng.uniform(0.5, 2.5, (8, 1))], 1).astype(
+        np.float32)
+    o_vox = (o_m - np.asarray(m.pc_range[:3], np.float32)) / np.float32(vs)
+    fan = [torch.from_numpy(a).to(dev)
+           for a in fan_parameters(generate_lidar_rays())]
+    fargs = (occs, torch.from_numpy(o_vox).to(dev), *fan)
+    got = rv.dda_raymarch_fan_vec_cuda(*fargs)
+    want = rv.dda_raymarch_fan_vec_plain(*fargs)
+    err = compare_marches(torch, f"fan {tuple(got[0].shape)}", got, want)
+    k, pl = in_turns(torch, lambda: rv.dda_raymarch_fan_vec_cuda(*fargs),
+                     lambda: rv.dda_raymarch_fan_vec_plain(*fargs), 5)
+    v0 = torch.floor(fargs[1][:, :2]).int()[None, :, None, None]
+    crossings = int(((got[1][..., :2] - v0).abs().sum(-1) + 1).sum())
+    nb = nbytes(fargs[1], *fan) + occs.shape[0] * occ_size[0] \
+        * occ_size[1] * 4 + got[0].numel() * (4 + 12 + 1)
+    b_ms, by = least_time(nb, crossings * FAN_OPS_PER_CROSSING)
+    log(f"  fan: kernel {k:.4f} ms, plain {pl:.4f} ms; "
+        f"{crossings / got[0].numel():.1f} crossings a ray; bound "
+        f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
+    results["ray_march_fan"] = {"max_abs_err": err, "ms": k, "plain_ms": pl,
+                                "bound_ms": b_ms, "bound_by": by,
+                                "library_ms": None}
+
+    # the bench tool, the path that runs #7
+    lp.LIFT_PASS2.launches = 0
+    times = blp.main([])
+    results["lift_pass2"]["launches"] = lp.LIFT_PASS2.launches
+    log(f"  bench_lift_passes: {times}; lift_pass2 launches "
+        f"{lp.LIFT_PASS2.launches}")
+    if not lp.LIFT_PASS2.launches:
+        raise RuntimeError("the bench tool did not launch lift_pass2")
+    torch.cuda.empty_cache()
+
+
+def synth_tiny_fp32():
+    from occnet_tpu_torch.config import synth_tiny_turbo_occ
+    cfg = synth_tiny_turbo_occ()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+
+
+def gt_ray_iou(torch, cfg, sample, device):
+    """RayIoU of a frame's ground truth against itself on ``device``."""
+    from occnet_tpu_torch.evaluation.ego_pose import pad_origins
+    from occnet_tpu_torch.evaluation.ray_metrics import (
+        RayMetricAccumulator, generate_lidar_rays, occ_score_from_metrics,
+        render_pred_gt)
+    sem = torch.from_numpy(sample["voxel_semantics"]).to(device)
+    flow = torch.from_numpy(sample["voxel_flow"]).to(device)
+    padded, valid = pad_origins(np.zeros((1, 3), np.float32),
+                                cfg.eval.max_origins)
+    acc = RayMetricAccumulator()
+    acc.update(*render_pred_gt(sem, flow, sem, flow, generate_lidar_rays(),
+                               padded, valid, voxel_size=cfg.eval.voxel_size,
+                               pc_range=tuple(cfg.eval.pc_range)))
+    return occ_score_from_metrics(acc.finalize())["RayIoU"]
+
+
+def phase_eval_parity(torch):
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
+    from occnet_tpu_torch.evaluation.ego_pose import pad_origins
+    from occnet_tpu_torch.evaluation.ray_metrics import (count_sample,
+                                                         generate_lidar_rays,
+                                                         render_pred_gt)
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training.eval_loop import run_evaluation
+    cfg = synth_tiny_fp32()
+    m = cfg.model
+    ds = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        ds[dev] = SyntheticOccDataset(cfg.data, m, 2, seed=0, training=False,
+                                      device_normalize=True, device=dev)
+        log(f"  {dev}: 2 scenes rendered in {time.perf_counter() - t:.2f} s")
+    diff = np.mean([(a[0] != b[0]).any(-1).mean() for a, b in
+                    zip(ds["cuda"].samples, ds["cpu"].samples)])
+    log(f"  synth_tiny views {ds['cpu'].samples[0][0].shape}: share of "
+        f"pixels differing card vs CPU {diff:.3e} (tol {PIXEL_MISMATCH})")
+    if diff > PIXEL_MISMATCH:
+        raise RuntimeError("rendered views differ between card and CPU")
+    s = ds["cpu"].get_sample(0)
+    ious = {dev: gt_ray_iou(torch, cfg, s, dev) for dev in ("cuda", "cpu")}
+    log(f"  GT-vs-GT RayIoU {ious}")
+    if ious != {"cuda": 1.0, "cpu": 1.0}:
+        raise RuntimeError("GT-vs-GT RayIoU is not 1")
+    # counts of the same (pred, gt) grids on both devices
+    rng = np.random.RandomState(13)
+    gt = s["voxel_semantics"]
+    pred = gt.copy()
+    flip = rng.rand(*gt.shape) < 0.05
+    pred[flip] = rng.randint(0, 17, int(flip.sum()))
+    fpred = rng.randn(*s["voxel_flow"].shape).astype(np.float32)
+    padded, valid = pad_origins(np.array([[0.0, 0, 0], [3, -2, 0.5]],
+                                         np.float32), cfg.eval.max_origins)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        def t_(a):
+            return torch.from_numpy(a).to(dev)
+        pr, g = render_pred_gt(t_(pred), t_(fpred), t_(gt),
+                               t_(s["voxel_flow"]), generate_lidar_rays(),
+                               padded, valid, voxel_size=cfg.eval.voxel_size,
+                               pc_range=tuple(cfg.eval.pc_range))
+        counts[dev] = {k: v.cpu() for k, v in count_sample(pr, g).items()}
+    same = {k: torch.equal(counts["cuda"][k], counts["cpu"][k])
+            for k in counts["cpu"]}
+    ave = (counts["cuda"]["ave_sum"] - counts["cpu"]["ave_sum"]).abs().max()
+    log(f"  metric counts card vs CPU bitwise: {same}; ave_sum max|d| "
+        f"{ave.item():.3e}")
+    if not all(v for k, v in same.items() if k != "ave_sum") \
+            or ave.item() > 1e-5 * counts["cpu"]["ave_sum"].abs().max():
+        raise RuntimeError("metric counts differ between card and CPU")
+    # the random-weight model, end to end on each device
+    sd = from_jax_variables(randomize_variables(
+        init_jax_style_variables(cfg, seed=1), seed=2))
+    preds = {dev: Predictor(cfg, sd, dev) for dev in ("cuda", "cpu")}
+    agree = np.mean([
+        (preds["cuda"](x["img"][None], x["ego2img"][None])[0].cpu()
+         == preds["cpu"](x["img"][None], x["ego2img"][None])[0]).float()
+        .mean().item() for x in map(ds["cpu"].get_sample, range(2))])
+    scores = {dev: run_evaluation(cfg, preds[dev], ds[dev],
+                                  log=lambda *a: None)
+              for dev in ("cuda", "cpu")}
+    d_iou = abs(scores["cuda"]["RayIoU"] - scores["cpu"]["RayIoU"])
+    log(f"  random-weight synth_tiny_turbo_occ fp32: argmax agreement "
+        f"{agree:.5f}; run_evaluation card {scores['cuda']}, CPU "
+        f"{scores['cpu']}; |d RayIoU| {d_iou:.3e}")
+    if agree < 0.99 or not np.isfinite(scores["cuda"]["RayIoU"]):
+        raise RuntimeError("card and CPU evaluations disagree")
+
+
+def phase_eval_turbo(torch, results):
+    import shutil
+    import tempfile
+    from occnet_tpu_torch.config import turbo_occ
+    from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
+    from occnet_tpu_torch.ops.lift_cuda import LIFT
+    from occnet_tpu_torch.ops.ray_march import DDA
+    from occnet_tpu_torch.ops.ray_march_vec import FAN
+    from occnet_tpu_torch.ops.tsa import TAP
+    from occnet_tpu_torch.tools import train as cli
+    from occnet_tpu_torch.training import eval_loop
+    cfg = turbo_occ()
+    DDA.launches = 0
+    ds = SyntheticOccDataset(cfg.data, cfg.model, 2, seed=0, training=False,
+                             device_normalize=True)
+    per_scene = DDA.launches / len(ds)
+    iou = gt_ray_iou(torch, cfg, ds.get_sample(0), "cuda")
+    log(f"  2 val scenes at {cfg.model.img_h} x {cfg.model.img_w} x "
+        f"{cfg.model.num_cams}, grid {tuple(cfg.data.occ_size)}: render ms "
+        f"{[round(x, 3) for x in ds.render_ms]} (the first builds nothing: "
+        f"the library is loaded), {per_scene:.0f} DDA launches a scene; "
+        f"GT-vs-GT RayIoU {iou}")
+    if per_scene != cfg.model.num_cams or iou != 1.0:
+        raise RuntimeError("val scene rendering or GT-vs-GT RayIoU wrong")
+    del ds
+
+    kernels = {"lift": LIFT, "tap": TAP, "fan": FAN}
+    frames = []
+    orig = eval_loop.run_evaluation
+
+    def traced(*a, **kw):
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev, {k: v.launches
+                                     for k, v in kernels.items()}))
+
+        scores = orig(*a, mark=mark, **kw)
+        torch.cuda.synchronize()
+        for i in range(0, len(marks), 4):
+            (_, e0, l0), (_, e1, _), (_, e2, _), (_, e3, l3) = marks[i:i + 4]
+            frames.append({"forward": e0.elapsed_time(e1),
+                           "render": e1.elapsed_time(e2),
+                           "counts": e2.elapsed_time(e3),
+                           "launches": {k: l3[k] - l0[k] for k in l0}})
+        return scores
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    DDA.launches = FAN.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eval_loop.run_evaluation = traced
+    t = time.perf_counter()
+    try:
+        history = cli.main(["--config", "turbo_occ", "--synthetic-geometric",
+                            "4", "--synthetic-render-scale", "1",
+                            "--eval-interval-epochs", "1", "--max-steps", "4",
+                            "--work-dir", work])
+    finally:
+        eval_loop.run_evaluation = orig
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    evals = [h for h in history if h.get("tag") == "eval"]
+    steps = [h for h in history if "loss" in h]
+    want = {"lift": cfg.model.num_feature_levels,
+            "tap": cfg.model.encoder.num_layers, "fan": 1}
+    mean = {k: float(np.mean([f[k] for f in frames]))
+            for k in ("forward", "render", "counts")}
+    log(f"  train CLI: {len(steps)} steps, losses "
+        f"{[round(h['loss'], 4) for h in steps]}; {wall:.1f} s in all; "
+        f"peak allocated {peak:.3f} GiB; DDA launches {DDA.launches} "
+        f"(12 scenes), fan launches {FAN.launches}; card {nvidia_smi()}")
+    log(f"  eval of {len(frames)} frames: scores {evals}")
+    log(f"  per frame (CUDA events), mean ms: forward {mean['forward']:.3f}, "
+        f"render pred+gt {mean['render']:.3f}, counts {mean['counts']:.3f}; "
+        f"per frame: " + "; ".join(
+            f"{f['forward']:.2f}/{f['render']:.3f}/{f['counts']:.3f}"
+            for f in frames))
+    log(f"  launches per frame {[f['launches'] for f in frames]} (expected "
+        f"{want})")
+    if len(steps) != 4 or len(evals) != 1 or len(frames) != 8 \
+            or not np.isfinite(evals[0]["RayIoU"]):
+        raise RuntimeError(f"train CLI eval run incomplete: {history}")
+    if any(f["launches"] != want for f in frames):
+        raise RuntimeError("eval launch counts per frame are wrong")
+    results["ray_march_dda"]["launches"] = DDA.launches
+    results["ray_march_fan"]["launches"] = FAN.launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1289,6 +1673,17 @@ def main():
     log("[15 serve r101_dcn_occ] full width, bf16, gather DCN, exact "
         "encoder")
     phase_serve_dcn(torch, "r101_dcn_occ", results)
+    torch.cuda.empty_cache()
+    log("[16 kernels (eval)] pass-2 from a tmp slab (Pallas #7) at the bench "
+        "tool's shapes; the per-ray and fan DDA at full width")
+    phase_eval_kernels(torch, cfg, results)
+    log("[17 eval parity] synth_tiny_turbo_occ fp32, card vs CPU: views, "
+        "metric counts, run_evaluation")
+    phase_eval_parity(torch)
+    torch.cuda.empty_cache()
+    log("[18 eval turbo_occ] train CLI: 4 steps on 4 synthetic scenes, "
+        "run_evaluation on 8 val scenes")
+    phase_eval_turbo(torch, results)
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -1315,6 +1710,18 @@ def main():
              source="occnet_tpu_torch/csrc/deform_conv.cu",
              replaces="occnet_tpu/ops/dcn_window.py:133,174",
              **results["dcn"]),
+        dict(name="lift_pass2", route="cuda",
+             source="occnet_tpu_torch/csrc/lift_pass2.cu",
+             replaces="occnet_tpu/ops/lift_pallas.py:385",
+             **results["lift_pass2"]),
+        dict(name="ray_march_dda", route="cuda",
+             source="occnet_tpu_torch/csrc/ray_march.cu",
+             replaces="occnet_tpu/ops/ray_march.py:31",
+             **results["ray_march_dda"]),
+        dict(name="ray_march_fan", route="cuda",
+             source="occnet_tpu_torch/csrc/ray_march.cu",
+             replaces="occnet_tpu/ops/ray_march_vec.py:121",
+             **results["ray_march_fan"]),
     ]
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}

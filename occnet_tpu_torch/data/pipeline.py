@@ -1,6 +1,7 @@
-"""On-device image processing (port of `occnet_tpu.data.pipeline`): the
-normaliser of the serving path, and the train-time augmenter (photometric
-distortion -> normalise -> pad) of uint8 uploads.
+"""Image processing (port of `occnet_tpu.data.pipeline`): the on-device
+normaliser of the serving path, the train-time augmenter (photometric
+distortion -> normalise -> pad) of uint8 uploads, and the host-side
+normalise and pad of float datasets.
 
 The photometric distortion is split into a draw from a `torch.Generator`
 (`photometric_draws`) and an apply from explicit draws
@@ -39,6 +40,23 @@ def _normalize_pad(out: torch.Tensor, mean, std, size_divisor: int
     if ph or pw:
         out = F.pad(out, (0, 0, 0, pw, 0, ph))
     return out
+
+
+def normalize_img(imgs: np.ndarray, mean, std) -> np.ndarray:
+    """Host-side (x - mean) / std in float32 (`pipeline.normalize_img`)."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return (imgs.astype(np.float32) - mean) / std
+
+
+def pad_to_divisor(imgs: np.ndarray, divisor: int = 32) -> np.ndarray:
+    """(N, H, W, C) -> bottom/right zero-padded to multiples of divisor."""
+    n, h, w, c = imgs.shape
+    ph = (-h) % divisor
+    pw = (-w) % divisor
+    if ph == 0 and pw == 0:
+        return imgs
+    return np.pad(imgs, ((0, 0), (0, ph), (0, pw), (0, 0)))
 
 
 def make_device_normalizer(cfg: DataConfig, size_divisor: int = 32):

@@ -41,11 +41,23 @@ ArrayLike = Union[np.ndarray, torch.Tensor]
 class Predictor:
     def __init__(self, cfg: OccNetConfig, state_dict: Dict[str, torch.Tensor],
                  device: Union[str, torch.device]):
-        self.cfg = cfg
-        self.device = torch.device(device)
         model = OccNet(cfg.model)
         model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval()
+        self._setup(cfg, model.to(device).eval(), torch.device(device))
+
+    @classmethod
+    def wrap(cls, cfg: OccNetConfig, model: OccNet) -> "Predictor":
+        """A Predictor over an existing model (e.g. the one being trained),
+        sharing its weights: no copy.  Requests run its inference branch
+        (``train=False``) whatever its module mode."""
+        self = cls.__new__(cls)
+        self._setup(cfg, model, next(model.parameters()).device)
+        return self
+
+    def _setup(self, cfg, model, device):
+        self.cfg = cfg
+        self.device = device
+        self.model = model
         self.normalize = make_device_normalizer(cfg.data)
         # the last request's certificates (None where the config has none)
         self.sca_topk_overflow: Optional[int] = None

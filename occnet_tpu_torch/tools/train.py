@@ -4,15 +4,29 @@
         --synthetic-data --max-steps 3
     python -m occnet_tpu_torch.tools.train --config tiny_turbo_occ \
         --synthetic-data --max-steps 3 --device cpu
+    python -m occnet_tpu_torch.tools.train --config turbo_occ \
+        --synthetic-geometric 64 --eval-interval-epochs 1
 
 The device is the card unless ``--device cpu`` says otherwise: without a
 CUDA device the CLI exits and names that flag.  Config selection and dotted
-``--set KEY=VAL`` overrides as in the JAX CLI.  Weights are random, drawn with the JAX package's initialisers from
-``--seed``.  Only synthetic data is ported: one random batch (uint8 images on
-the ring rig, random labels and flow) from ``--seed``, reused every step.
+``--set KEY=VAL`` overrides as in the JAX CLI.  Weights are random, drawn
+with the JAX package's initialisers from ``--seed``.  Two data sources, both
+synthetic (no dataset loader is ported):
+
+- ``--synthetic-data``: one random batch (uint8 images on the ring rig,
+  random labels and flow) from ``--seed``, reused every step;
+- ``--synthetic-geometric N``: N scenes of the synthetic geometric benchmark
+  (`data/synthetic.py`, rendered on the device; train seeds from 1000),
+  shuffled per epoch (epoch = N // batch steps), with uint8 views
+  normalised on the device and the photometric distortion off (the task
+  encodes class in colour).  ``--eval-interval-epochs K`` scores RayIoU /
+  mAVE / OccScore every K epochs on max(8, N // 16) held-out scenes (seeds
+  from 0) with `training.eval_loop.run_evaluation`.
+
 Logs loss, grad_norm and lr every ``--log-interval`` steps (default every
-step), writes ``metrics.jsonl`` and a final checkpoint (``ckpt.pt``) under
-``--work-dir``.
+step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a final
+checkpoint (``ckpt.pt``) under ``--work-dir``.  Returns the logged metrics,
+evaluations included.
 """
 
 from __future__ import annotations
@@ -42,6 +56,17 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="cap total steps (smoke runs)")
     p.add_argument("--synthetic-data", action="store_true",
                    help="train on one random batch (no dataset on disk)")
+    p.add_argument("--synthetic-geometric", type=int, default=0, metavar="N",
+                   help="train on N generated geometric scenes rendered on "
+                        "the device (data/synthetic.py); "
+                        "--eval-interval-epochs evaluates RayIoU on a "
+                        "held-out synthetic val split")
+    p.add_argument("--synthetic-render-scale", type=int, default=1,
+                   help="ray-cast the synthetic scenes at 1/N resolution "
+                        "and pixel-repeat up to the model size")
+    p.add_argument("--eval-interval-epochs", type=int, default=0,
+                   help="run ray-metric evaluation on the val split every N "
+                        "epochs (0 = off)")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
     p.add_argument("--device", default="cuda",
@@ -101,7 +126,10 @@ def main(argv: Optional[Sequence[str]] = None):
     from occnet_tpu_torch.config import apply_overrides, get_config
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
-    from occnet_tpu_torch.training import checkpoint
+    from occnet_tpu_torch.data.loader import PrefetchLoader
+    from occnet_tpu_torch.data.sampler import shuffled_shard_indices
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training import checkpoint, eval_loop
     from occnet_tpu_torch.training.train import (create_train_state,
                                                  make_train_step)
 
@@ -109,9 +137,10 @@ def main(argv: Optional[Sequence[str]] = None):
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
-    if not args.synthetic_data:
-        raise SystemExit("occnet_tpu_torch trains on --synthetic-data only; "
-                         "the dataset loaders are not ported yet")
+    if not (args.synthetic_data or args.synthetic_geometric):
+        raise SystemExit("occnet_tpu_torch trains on --synthetic-data or "
+                         "--synthetic-geometric N only; the dataset loaders "
+                         "are not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("occnet_tpu_torch.tools.train: no CUDA device is "
@@ -127,9 +156,31 @@ def main(argv: Optional[Sequence[str]] = None):
              if device.type == "cuda" else "host CPU")
     log.info("config: %s", cfg)
 
-    rng = np.random.RandomState(args.seed)
-    batch = to_device(make_synthetic_batch(
-        cfg, cfg.data.batch_size_per_device, rng), device)
+    batch_size = cfg.data.batch_size_per_device
+    dataset = val_dataset = None
+    if args.synthetic_geometric:
+        from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
+        cfg = apply_overrides(cfg, {"data.device_distortion": "false"})
+        # disjoint seed ranges: val = seeds [0, n_val), train = [1000, ...)
+        dataset = SyntheticOccDataset(
+            cfg.data, cfg.model, args.synthetic_geometric, seed=1000,
+            render_scale=args.synthetic_render_scale, log=log.info,
+            device_normalize=True, device=device)
+        if args.eval_interval_epochs:
+            val_dataset = SyntheticOccDataset(
+                cfg.data, cfg.model, max(8, args.synthetic_geometric // 16),
+                seed=0, training=False,
+                render_scale=args.synthetic_render_scale,
+                device_normalize=True, device=device)
+        steps_per_epoch = max(len(dataset) // batch_size, 1)
+        cfg = apply_overrides(cfg, {"optim.steps_per_epoch":
+                                    str(steps_per_epoch)})
+        log.info("synthetic-geometric dataset: %d scenes (%.1f ms a scene "
+                 "render), %d steps/epoch", len(dataset),
+                 float(np.mean(dataset.render_ms)), steps_per_epoch)
+    else:
+        batch = to_device(make_synthetic_batch(
+            cfg, batch_size, np.random.RandomState(args.seed)), device)
     t0 = time.time()
     state = create_train_state(cfg, from_jax_variables(
         init_jax_style_variables(cfg, seed=args.seed)), device)
@@ -146,10 +197,27 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)
     step0 = state.step
+    epoch_len = cfg.optim.steps_per_epoch
     history = []
     t_start = time.time()
+    loader_iter, loader_epoch = None, -1
     with open(os.path.join(work_dir, "metrics.jsonl"), "a") as events:
         for step in range(step0, total_steps):
+            if dataset is not None:
+                epoch = step // epoch_len
+                if epoch != loader_epoch:
+                    order = shuffled_shard_indices(len(dataset), 1, 0, epoch,
+                                                   cfg.seed)
+                    skip = (step % epoch_len) * batch_size
+                    loader_iter = iter(PrefetchLoader(
+                        dataset, batch_size, order[skip:], seed=cfg.seed,
+                        epoch=epoch, num_workers=cfg.data.workers))
+                    loader_epoch = epoch
+                batch = next(loader_iter)
+                batch.pop("tokens")
+                batch["voxel_semantics"] = batch["voxel_semantics"].astype(
+                    np.int64)
+                batch = to_device(batch, device)
             metrics = step_fn(state, batch)
             if step % args.log_interval == 0 or step == total_steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -165,6 +233,15 @@ def main(argv: Optional[Sequence[str]] = None):
                 events.write(json.dumps({"step": step, "s_per_it": dt, **m})
                              + "\n")
                 history.append(m)
+            if (val_dataset is not None and (step + 1) % epoch_len == 0
+                    and (step // epoch_len + 1) % args.eval_interval_epochs
+                    == 0):
+                scores = eval_loop.run_evaluation(
+                    cfg, Predictor.wrap(cfg, state.model), val_dataset,
+                    log=log.info)
+                events.write(json.dumps({"step": step + 1, "tag": "eval",
+                                         **scores}) + "\n")
+                history.append({"step": step + 1, "tag": "eval", **scores})
     checkpoint.save(ckpt_path, state, cfg)
     log.info("checkpoint @ step %d: %s", state.step, ckpt_path)
     if device.type == "cuda":

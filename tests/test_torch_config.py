@@ -48,8 +48,9 @@ def test_class_names_and_unknown_config():
 
 
 def test_port_modules_import_without_the_jax_package():
-    """Every module of `occnet_tpu_torch` imports with `occnet_tpu`, `jax`
-    and `flax` made to fail, and none of them is loaded afterwards."""
+    """Every module of `occnet_tpu_torch` (the evaluation slice's among
+    them) imports with `occnet_tpu`, `jax` and `flax` made to fail, and none
+    of them is loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'flax', 'jaxlib', 'occnet_tpu'):\n"
@@ -62,13 +63,21 @@ def test_port_modules_import_without_the_jax_package():
         "bad = [k for k, m in sys.modules.items() if m is not None and\n"
         "       k.split('.')[0] in ('jax', 'flax', 'jaxlib', 'occnet_tpu')]\n"
         "assert not bad, bad\n"
-        "print('IMPORTED', len(mods))\n")
+        "print('IMPORTED', ' '.join(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split("IMPORTED")[1]) >= 25, r.stdout
+    mods = set(r.stdout.split("IMPORTED")[1].split())
+    assert len(mods) >= 45, r.stdout
+    # the evaluation slice's modules among them
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "ops.lift_pass2", "ops.ray_march", "ops.ray_march_vec",
+        "evaluation", "evaluation.ray_metrics", "evaluation.ego_pose",
+        "data.quat", "data.synthetic", "data.loader", "data.sampler",
+        "training.eval_loop", "tools.bench_lift_passes",
+        "tools.synth_learn")} <= mods, r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
