@@ -13,23 +13,34 @@ Phases (each raises on failure, so any failure exits nonzero):
   5. serve    Predictor on turbo_occ (bf16, full width) answers 3 requests of
               6 uint8 900x1600 images; launch counts prove both kernels ran
   6. kernels (backward)  lift_bwd and tap_bwd kernels vs their plain versions
-              at the main-path shapes (lift at B=1 and B=2, the B=2 result
-              against two B=1 calls, the adjoint identity)
+              at the main-path shapes (lift at B=1 and B=2, every level
+              within one bf16 step, two launches bitwise equal, the B=2
+              result against two B=1 calls, the adjoint identity on three
+              draws a level (the gap over sum|u g|), and at
+              16 z-anchors, where a line's planes take two tiles); the
+              lift_bwd index kernel bitwise equal to its plain version at
+              every level, and timed
   7. train parity  one train step of tiny_turbo_occ in fp32 on the card and
               on the CPU, same weights and batch: same loss and gradients
   8. train    turbo_occ full width, bf16, B=1, config defaults (grid mask,
               photometric distortion, dropout): 1 warm-up + 3 timed steps
               through the CLI's train step; frozen stages bitwise unchanged,
-              every other leaf moved, 4 launches of each kernel per step
+              every other leaf moved, 4 launches of each kernel per step;
+              one more step under torch.profiler (device time summed and
+              the card's busy time)
   9. kernels (msda)  the deformable-attention kernel vs its plain version at
               base_occ's SCA shape (6 cameras x 12288 queries, 4 levels) and
-              TSA shape (2 x 40000 queries, 1 level), bf16 and f32 values
+              TSA shape (2 x 40000 queries, 1 level), bf16 and f32 values,
+              uniform random locations: within the bounds, f32 bitwise
+              equal, the B=2 result bitwise equal to two B=1 calls
  10. exact parity  the pillar projection at full width and at tiny_occ's
               size, card vs CPU bitwise (bev_mask and ref_cam); tiny_occ in
               fp32 with static top-K SCA on the card and on the CPU: same
               logits, same sca_topk_overflow
  11. serve exact  Predictor on base_occ (bf16, full width, gather encoder)
-              answers 3 requests; 24 msda launches, certificate 0; then one
+              answers 3 requests; 24 msda launches, certificate 0; the
+              msda kernel timed on the first encoder layer's TSA and SCA
+              inputs captured from a request (real locations); then one
               request split by CUDA events and one under torch.profiler
  12. kernels (dcn)  the DCNv2 sampling kernel vs its plain version at the
               four DCN shapes of R101-DCN (B = 6; stride 1 and 2; bf16 and
@@ -79,12 +90,13 @@ import numpy as np
 LIFT_TOL = 0.05          # bf16 bound between two lift forms (JAX tests)
 TAP_TOL = 2e-2           # rtol = atol of tests/test_tsa_pallas.py
 LOGIT_ATOL = 5e-2        # cross-implementation bound of the model tests
-# lift_bwd: both forms round an fp32 sum to bf16; the kernel's atomics add in
-# a run-dependent order, so the two may be one bf16 step apart (2^-7 of the
-# larger magnitude) plus fp32 ordering noise on cancelling sums
+# lift_bwd: both forms round an fp32 sum to bf16; the kernel adds in another
+# order than the plain version, so the two may be one bf16 step apart (2^-7
+# of the larger magnitude) plus fp32 ordering noise on cancelling sums
 LIFT_BWD_RTOL = 2.0 ** -7
 LIFT_BWD_ATOL = 2.0 ** -12   # x max|plain| of the level
 ADJOINT_RTOL = 1e-5      # fp32 inner products <lift f, g> vs <f, lift^T g>
+ADJOINT_DRAWS = 3        # draws of (f, g) a level for the adjoint identity
 GRAD_RTOL = 5e-2         # per leaf, x max|g|: the lift's bf16 rounding bound
 MSDA_BF16_TOL = 2e-2     # bf16 values: one bf16 step (the tap bound)
 MSDA_F32_ATOL, MSDA_F32_RTOL = 2e-5, 1e-5   # tests/test_msda.py:192
@@ -357,7 +369,9 @@ def phase_parity(torch, full_cfg):
 
 def phase_kernels_bwd(torch, cfg, results):
     from occnet_tpu_torch.ops import tsa
-    from occnet_tpu_torch.ops.lift_cuda import (lift_level_bwd_cuda,
+    from occnet_tpu_torch.ops.lift_cuda import (lift_bwd_index,
+                                                lift_bwd_index_plain,
+                                                lift_level_bwd_cuda,
                                                 lift_level_bwd_plain,
                                                 lift_level_cuda)
     m = cfg.model
@@ -372,31 +386,50 @@ def phase_kernels_bwd(torch, cfg, results):
         geo, inv = lift_geometry(torch, m, e2i, levels)
         gs = [torch.randn(B, ZR, m.bev_w, C, generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in levels]
-        out[B] = (e2i, geo, inv, gs)
+        idx = [lift_bwd_index(p1, p2, st, hw)
+               for (p1, p2, st), hw in zip(geo, levels)]
+        for (p1, p2, st), hw, ix in zip(geo, levels, idx):
+            ix.check()
+            runs, excess = lift_bwd_index_plain(p1, p2, st, hw)
+            if not (torch.equal(ix.runs, runs) and int(excess) == 0):
+                raise RuntimeError(f"lift_bwd index kernel differs from its "
+                                   f"plain version at level {hw}")
+        log(f"  lift_bwd index B={B}: every level bitwise equal to the plain "
+            f"version, premise holds (0 excess pairs)")
+        out[B] = (e2i, geo, inv, gs, idx)
         worst = 0.0
-        for (h, w), (p1, p2, st), g in zip(levels, geo, gs):
-            dk = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w)).float()
+        for (h, w), (p1, p2, st), g, ix in zip(levels, geo, gs, idx):
+            dk = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w), index=ix)
+            dk2 = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w), index=ix)
             dp = lift_level_bwd_plain(g, p1, p2, st, inv, (h, w)).float()
+            same = torch.equal(dk, dk2)
+            dk = dk.float()
             bad = bf16_step_apart(torch, dk, dp)
             err = (dk - dp).abs().max().item()
             worst = max(worst, err)
-            log(f"  lift_bwd B={B} level {h}x{w}: max|kernel-plain| = "
+            runs = int((ix.runs[..., 0] != 0).sum())
+            log(f"  lift_bwd B={B} level {h}x{w}: {runs} (line, plane) runs;"
+                f" max|kernel-plain| = "
                 f"{err:.6f}, |plain| max {dp.abs().max().item():.3f}, "
                 f"{bad} elements beyond one bf16 step, "
-                f"finite={torch.isfinite(dk).all().item()}")
+                f"finite={torch.isfinite(dk).all().item()}, two launches "
+                f"bitwise equal {same}")
             if bad or not torch.isfinite(dk).all().item():
                 raise RuntimeError("lift_bwd kernel disagrees with plain")
+            if not same:
+                raise RuntimeError("lift_bwd kernel is not deterministic")
         results["lift_bwd"]["max_abs_err"] = max(
             worst, results["lift_bwd"].get("max_abs_err", 0.0))
 
     # B=2 against two B=1 calls on the same samples (the r5 hazard)
-    e2i, geo, inv, gs = out[2]
+    e2i, geo, inv, gs, idx = out[2]
     for b in (0, 1):
         geo1, inv1 = lift_geometry(torch, m, e2i[b:b + 1].contiguous(),
                                    levels)
-        for (h, w), (p1, p2, st), g, (q1, q2, qt) in zip(levels, geo, gs,
-                                                          geo1):
-            d2 = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w)).float()[b]
+        for (h, w), (p1, p2, st), g, ix, (q1, q2, qt) in zip(
+                levels, geo, gs, idx, geo1):
+            d2 = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w),
+                                     index=ix).float()[b]
             d1 = lift_level_bwd_cuda(g[b:b + 1].contiguous(), q1, q2, qt,
                                      inv1, (h, w)).float()[0]
             bad = bf16_step_apart(torch, d2, d1)
@@ -406,33 +439,92 @@ def phase_kernels_bwd(torch, cfg, results):
     log("  lift_bwd B=2 == two B=1 calls, every level (within one bf16 "
         "step)")
 
-    # adjoint identity <lift(f), g> = <f, lift^T(g)>, fp32 output both ways
-    e2i, geo, inv, gs = out[1]
+    # 16 z-anchors: ZR = 3200 planes, more than the kernel sorts at once, so
+    # each line is walked in two tiles carried in the fp32 scratch
+    m16 = dataclasses.replace(m, encoder=dataclasses.replace(
+        m.encoder, num_points_in_pillar=16))
+    tiles = [(29, 50), (15, 25)]
+    geo16, inv16 = lift_geometry(torch, m16, out[1][0], tiles)
+    gen16 = torch.Generator(device=dev).manual_seed(16)
+    for (h, w), (p1, p2, st) in zip(tiles, geo16):
+        g = torch.randn(1, p2.shape[2], m.bev_w, C, generator=gen16,
+                        device=dev).to(torch.bfloat16)
+        for dt in (torch.bfloat16, torch.float32):
+            dk = lift_level_bwd_cuda(g, p1, p2, st, inv16, (h, w),
+                                     out_dtype=dt)
+            same = torch.equal(dk, lift_level_bwd_cuda(
+                g, p1, p2, st, inv16, (h, w), out_dtype=dt))
+            dp = lift_level_bwd_plain(g, p1, p2, st, inv16, (h, w),
+                                      out_dtype=dt).float()
+            bad = bf16_step_apart(torch, dk.float(), dp)
+            log(f"  lift_bwd ZR={p2.shape[2]} level {h}x{w} {dt}: "
+                f"{bad} elements beyond one bf16 step, two launches "
+                f"bitwise equal {same}")
+            if bad or not same:
+                raise RuntimeError("lift_bwd kernel fails over two tiles")
+
+    # adjoint identity <lift(f), g> = <f, lift^T(g)>, fp32 output both ways,
+    # on ADJOINT_DRAWS draws of (f, g) a level; the gap is taken relative to
+    # sum|u * g|, since the inner product itself cancels and may be near 0
+    e2i, geo, inv, gs, idx = out[1]
     B1 = 1
-    for (h, w), (p1, p2, st), g in zip(levels, geo, gs):
-        f = torch.randn(1, m.num_cams, h, w, C, generator=gen, device=dev
-                        ).to(torch.bfloat16)
-        u = torch.empty(1, ZR, m.bev_w, C, device=dev)
-        lift_level_cuda(f, p1, p2, st, inv, u)
-        gf = g.float()
-        df = lift_level_bwd_cuda(gf, p1, p2, st, inv, (h, w),
-                                 out_dtype=torch.float32)
-        lhs = (u.double() * gf.double()).sum().item()
-        rhs = (f.double() * df.double()).sum().item()
-        rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
-        log(f"  adjoint level {h}x{w}: <lift f, g> = {lhs:.6e}, "
-            f"<f, lift^T g> = {rhs:.6e}, rel {rel:.2e} (tol {ADJOINT_RTOL})")
-        if not rel <= ADJOINT_RTOL:
-            raise RuntimeError("lift_bwd kernel is not the forward's adjoint")
+    for (h, w), (p1, p2, st), ix in zip(levels, geo, idx):
+        for _ in range(ADJOINT_DRAWS):
+            f = torch.randn(1, m.num_cams, h, w, C, generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            gf = torch.randn(1, ZR, m.bev_w, C, generator=gen, device=dev
+                             ).to(torch.bfloat16).float()
+            u = torch.empty(1, ZR, m.bev_w, C, device=dev)
+            lift_level_cuda(f, p1, p2, st, inv, u)
+            df = lift_level_bwd_cuda(gf, p1, p2, st, inv, (h, w),
+                                     out_dtype=torch.float32, index=ix)
+            ug = u.double() * gf.double()
+            lhs = ug.sum().item()
+            rhs = (f.double() * df.double()).sum().item()
+            rel = abs(lhs - rhs) / max(ug.abs().sum().item(), 1e-30)
+            log(f"  adjoint level {h}x{w}: <lift f, g> = {lhs:.6e}, "
+                f"<f, lift^T g> = {rhs:.6e}, |gap| / sum|u g| = {rel:.2e} "
+                f"(tol {ADJOINT_RTOL})")
+            if not rel <= ADJOINT_RTOL:
+                raise RuntimeError("lift_bwd kernel is not the forward's "
+                                   "adjoint")
 
     def run(fn):
         def go():
-            for (h, w), (p1, p2, st), g in zip(levels, geo, gs):
-                fn(g, p1, p2, st, inv, (h, w))
+            for (h, w), (p1, p2, st), g, ix in zip(levels, geo, gs, idx):
+                fn(g, p1, p2, st, inv, (h, w), index=ix)
         return go
 
-    k, p = in_turns(torch, run(lift_level_bwd_cuda),
-                    run(lift_level_bwd_plain), 3)
+    def plain(g, p1, p2, st, inv, hw, index):
+        return lift_level_bwd_plain(g, p1, p2, st, inv, hw)
+
+    k, p = in_turns(torch, run(lift_level_bwd_cuda), run(plain), 3)
+    per_level = [cuda_ms(torch, lambda: lift_level_bwd_cuda(
+        g, p1, p2, st, inv, hw, index=ix), 3)
+        for hw, (p1, p2, st), g, ix in zip(levels, geo, gs, idx)]
+    log(f"  lift_bwd kernel per level ms: "
+        f"{[round(t, 4) for t in per_level]}")
+
+    def run_index(fn):
+        def go():
+            for (p1, p2, st), hw in zip(geo, levels):
+                fn(p1, p2, st, hw)
+        return go
+
+    ik, ip = in_turns(torch, run_index(lift_bwd_index),
+                      run_index(lift_bwd_index_plain), 3)
+    # reads the geometry, writes the runs (8 bytes a line and plane); a
+    # compare and two min / max a live (cell, tap) pair
+    ib_ms, iby = least_time(
+        sum(nbytes(p1, p2, st, ix.runs) for (p1, p2, st), ix
+            in zip(geo, idx)),
+        sum(4 * (p2 > -1).sum().item() for _, p2, _ in geo))
+    results["lift_bwd_index"].update(
+        max_abs_err=0.0, ms=ik, plain_ms=ip, bound_ms=ib_ms, bound_by=iby,
+        library_ms=None)
+    log(f"  lift_bwd index 4 levels B=1: kernel {ik:.4f} ms, plain "
+        f"{ip:.4f} ms; bound {ib_ms:.4f} ms ({iby}), kernel at "
+        f"{ib_ms / ik:.1%} of it")
     # reads g and the geometry, writes one bf16 feature gradient per level;
     # the forward's operations, transposed
     nb = sum(nbytes(g, p1, p2, st) + B1 * m.num_cams * h * w * C * 2
@@ -535,10 +627,35 @@ def phase_train_parity(torch):
         raise RuntimeError("card and CPU train steps disagree")
 
 
+def device_profile(torch, fn) -> dict:
+    """Device activity of one call of ``fn`` under `torch.profiler`, in ms:
+    the summed time of its kernels and copies, the union of their intervals
+    (the time the card was busy) and the span from the first start to the
+    last end.  Unlike the host clock, the host's spread does not blur it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler saw no device activity")
+    busy, end = 0.0, -1.0
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    return {"kernel_ms": sum(s1 - s0 for s0, s1 in spans) / 1e3,
+            "busy_ms": busy / 1e3, "span_ms": (end - spans[0][0]) / 1e3}
+
+
 def phase_train(torch, cfg, results):
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
-    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD
+    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD, LIFT_BWD_INDEX
     from occnet_tpu_torch.ops.tsa import TAP, TAP_BWD
     from occnet_tpu_torch.tools.train import make_synthetic_batch, to_device
     from occnet_tpu_torch.training.train import (create_train_state, lr_mult,
@@ -558,7 +675,8 @@ def phase_train(torch, cfg, results):
     torch.cuda.synchronize()
     log(f"  warm-up step: loss {float(metrics['loss']):.4f}")
     torch.cuda.reset_peak_memory_stats()
-    kernels = {"lift": LIFT, "lift_bwd": LIFT_BWD, "tap": TAP,
+    kernels = {"lift": LIFT, "lift_bwd": LIFT_BWD,
+               "lift_bwd_index": LIFT_BWD_INDEX, "tap": TAP,
                "tap_bwd": TAP_BWD}
     for k in kernels.values():
         k.launches = 0
@@ -591,6 +709,7 @@ def phase_train(torch, cfg, results):
     launches = {k: v.launches for k, v in kernels.items()}
     want = {"lift": m.num_feature_levels * TRAIN_STEPS,
             "lift_bwd": m.num_feature_levels * TRAIN_STEPS,
+            "lift_bwd_index": m.num_feature_levels * TRAIN_STEPS,
             "tap": m.encoder.num_layers * TRAIN_STEPS,
             "tap_bwd": m.encoder.num_layers * TRAIN_STEPS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -602,6 +721,10 @@ def phase_train(torch, cfg, results):
         f"GiB; launches {launches} (expected {want}); card {nvidia_smi()}")
     if launches != want:
         raise RuntimeError(f"train launch counts {launches} != {want}")
+    prof = device_profile(torch, lambda: step_fn(state, batch))
+    log(f"  one more step under torch.profiler: device kernels and copies "
+        f"{prof['kernel_ms']:.3f} ms summed, card busy {prof['busy_ms']:.3f} "
+        f"ms of a {prof['span_ms']:.3f} ms span")
     frozen = moved = 0
     for n, p in state.model.named_parameters():
         same = torch.equal(p.detach(), before[n])
@@ -615,7 +738,7 @@ def phase_train(torch, cfg, results):
             moved += 1
     log(f"  {frozen} frozen leaves (stem, layer1_*) bitwise unchanged; "
         f"{moved} trained leaves all moved")
-    for k in ("lift_bwd", "tap_bwd"):
+    for k in ("lift_bwd", "lift_bwd_index", "tap_bwd"):
         results[k]["launches"] = launches[k]
 
 
@@ -665,6 +788,16 @@ def phase_serve(torch, cfg, results):
         results[k]["launches"] = launches[k]
 
 
+def msda_bound(torch, v, loc, attn):
+    """(bound_ms, bound_by) of one MSDA call: its inputs read once and its
+    output written once; every sample 2x2 corners, mul + add per channel
+    (an upper bound on the operations: out-of-level samples are skipped)."""
+    N, Q, H, L, P, _ = loc.shape
+    D = v.shape[3]
+    return least_time(nbytes(v, loc, attn) + N * Q * H * D * v.element_size(),
+                      N * Q * H * D * L * P * 4 * 2)
+
+
 def phase_msda_kernels(torch, cfg, results):
     from occnet_tpu_torch.ops import msda
     m = cfg.model
@@ -688,9 +821,18 @@ def phase_msda_kernels(torch, cfg, results):
                              ).reshape(N, Q, H, L, P).contiguous()
         for dtype in (torch.bfloat16, torch.float32):
             v = v32.to(dtype)
-            got = msda.msda_cuda(v, shapes, loc, attn).float()
-            want = msda.msda_plain(v, shapes, loc, attn).float()
+            got = msda.msda_cuda(v, shapes, loc, attn)
+            want = msda.msda_plain(v, shapes, loc, attn)
+            # B = 2 against two B = 1 calls on the same samples
+            halves = torch.cat([msda.msda_cuda(v[i:i + 1].contiguous(),
+                                               shapes,
+                                               loc[i:i + 1].contiguous(),
+                                               attn[i:i + 1].contiguous())
+                                for i in range(2)])
             torch.cuda.synchronize()
+            same_b1 = torch.equal(got[:2], halves)
+            bitwise = torch.equal(got, want)
+            got, want = got.float(), want.float()
             diff = (got - want).abs()
             if dtype == torch.bfloat16:
                 bound = MSDA_BF16_TOL + MSDA_BF16_TOL * want.abs()
@@ -701,18 +843,23 @@ def phase_msda_kernels(torch, cfg, results):
             err = diff.max().item()
             log(f"  msda {name} value {tuple(v.shape)} {dtype}, Q={Q}, "
                 f"L={L}, P={P}: max|kernel-plain| = {err:.3e}, |plain| max "
-                f"{want.abs().max().item():.3f}, within bound: {ok}")
+                f"{want.abs().max().item():.3f}, within bound: {ok}, bitwise "
+                f"equal {bitwise}; B=2 == two B=1 calls bitwise {same_b1}")
             if not ok:
                 raise RuntimeError(f"msda kernel disagrees with plain "
                                    f"({name}, {dtype}): {err}")
+            if not same_b1:
+                raise RuntimeError(f"msda B=2 differs from two B=1 calls "
+                                   f"({name}, {dtype})")
+            if dtype == torch.float32 and not bitwise:
+                raise RuntimeError(f"msda f32 is not bitwise equal to the "
+                                   f"plain version ({name})")
             worst = max(worst, err)
             k, p = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc,
                                                           attn),
                             lambda: msda.msda_plain(v, shapes, loc, attn), 5)
+            b_ms, by = msda_bound(torch, v, loc, attn)
             nb = nbytes(v, loc, attn) + got.numel() * v.element_size()
-            # every sample: 2x2 corners, mul + add per channel (an upper
-            # bound: out-of-level samples are skipped)
-            b_ms, by = least_time(nb, N * Q * H * D * L * P * 4 * 2)
             log(f"  msda {name} {dtype}: kernel {k:.4f} ms, plain {p:.4f} "
                 f"ms; compulsory {nb / 1e6:.1f} MB -> "
                 f"{nb / k / 1e9:.3f} TB/s "
@@ -722,11 +869,12 @@ def phase_msda_kernels(torch, cfg, results):
                 ms, plain_ms = ms + k, plain_ms + p
                 bound_ms += b_ms
                 bound_by.add(by)
-    log(f"  msda per encoder layer (1 TSA + 1 SCA call, bf16): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["msda"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": "+".join(
-                           sorted(bound_by)), "library_ms": None}
+    log(f"  msda per encoder layer (1 TSA + 1 SCA call, bf16, uniform "
+        f"locations): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results["msda"] = {
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "+".join(sorted(bound_by)),
+        "library_ms": None}
 
 
 def exact_cfg(name, **sca):
@@ -844,6 +992,52 @@ def request_split(torch, pred, imgs, e2i):
     return split, marks[0][1].elapsed_time(marks[-1][1])
 
 
+def msda_real(torch, pred, imgs, e2i, results):
+    """The MSDA kernel on the inputs of a real request: the first encoder
+    layer's TSA and SCA calls of one base_occ request are captured (value,
+    loc, attn as the model makes them), then held to the plain version and
+    timed."""
+    from occnet_tpu_torch.models import attention
+    from occnet_tpu_torch.ops import msda
+    calls = []
+    orig = attention.multi_scale_deformable_attention
+
+    def capture(value, shapes, loc, attn):
+        if len(calls) < 2:
+            calls.append((value.clone(), list(shapes), loc.clone(),
+                          attn.clone()))
+        return orig(value, shapes, loc, attn)
+
+    attention.multi_scale_deformable_attention = capture
+    try:
+        pred(imgs, e2i)
+    finally:
+        attention.multi_scale_deformable_attention = orig
+    ms = bound_ms = 0.0
+    for (v, shapes, loc, attn), name in zip(calls, ("TSA", "SCA")):
+        got = msda.msda_cuda(v, shapes, loc, attn).float()
+        want = msda.msda_plain(v, shapes, loc, attn).float()
+        diff = (got - want).abs()
+        ok = bool((diff <= MSDA_BF16_TOL + MSDA_BF16_TOL * want.abs()).all())
+        inside = ((loc >= 0) & (loc <= 1)).all(-1).float().mean().item()
+        log(f"  msda on a real request, layer 0 {name}: value "
+            f"{tuple(v.shape)} {v.dtype}, loc {tuple(loc.shape)}, "
+            f"{inside:.1%} of samples inside their level; max|kernel-plain|"
+            f" = {diff.max().item():.3e}, within bound: {ok}")
+        if not ok:
+            raise RuntimeError(f"msda kernel disagrees with plain on a real "
+                               f"request ({name})")
+        k, _ = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc, attn),
+                        lambda: msda.msda_plain(v, shapes, loc, attn), 5)
+        b_ms, _ = msda_bound(torch, v, loc, attn)
+        log(f"  msda real {name}: kernel {k:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_ms / k:.1%})")
+        ms += k
+        bound_ms += b_ms
+    log(f"  msda per encoder layer on a real request: kernel {ms:.4f} ms")
+    results["msda"].update(ms_real=ms, bound_ms_real=bound_ms)
+
+
 def phase_serve_exact(torch, results):
     from occnet_tpu_torch import geometry
     from occnet_tpu_torch.convert import (from_jax_variables,
@@ -895,6 +1089,7 @@ def phase_serve_exact(torch, results):
     if launches != want:
         raise RuntimeError(f"msda launch count {launches} != {want}")
     results["msda"]["launches"] = launches
+    msda_real(torch, pred, reqs[-1], e2i, results)
 
     split, total = request_split(torch, pred, reqs[-1], e2i)
     log(f"  one request split by CUDA events (module hooks), total "
@@ -1641,7 +1836,7 @@ def main():
     log("[5 serve] turbo_occ full width, bf16")
     phase_serve(torch, cfg, results)
     torch.cuda.empty_cache()
-    results.update(lift_bwd={}, tap_bwd={})
+    results.update(lift_bwd={}, lift_bwd_index={}, tap_bwd={})
     log("[6 kernels (backward)] kernel vs plain at main-path shapes")
     phase_kernels_bwd(torch, cfg, results)
     log("[7 train parity] same weights and batch, card vs CPU "
@@ -1698,6 +1893,10 @@ def main():
              source="occnet_tpu_torch/csrc/lift_bwd.cu",
              replaces="occnet_tpu/ops/lift_pallas.py:270,493",
              **results["lift_bwd"]),
+        dict(name="lift_bwd_index", route="cuda",
+             source="occnet_tpu_torch/csrc/lift_bwd.cu",
+             replaces="occnet_tpu/ops/lift_pallas.py:270,493",
+             **results["lift_bwd_index"]),
         dict(name="tap_bwd", route="cuda",
              source="occnet_tpu_torch/csrc/tap_bwd.cu",
              replaces="occnet_tpu/ops/tsa_pallas.py:155",

@@ -1,6 +1,5 @@
 // Shared device helpers for the occnet_tpu_torch kernels: vector loads of
-// bf16/fp32 channel runs into fp32 registers, vector stores back, and fp32
-// atomic adds of channel runs.
+// bf16/fp32 channel runs into fp32 registers and vector stores back.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -79,19 +78,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// p[i] += v[i] for 8 consecutive fp32 channels (16-byte aligned), as two
-// vector atomics on sm_90 (float4 atomicAdd to global memory, CUDA >= 12.1).
-__device__ __forceinline__ void atomic_add8(float* p, const float* v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
-  float4* q = reinterpret_cast<float4*>(p);
-  atomicAdd(q, make_float4(v[0], v[1], v[2], v[3]));
-  atomicAdd(q + 1, make_float4(v[4], v[5], v[6], v[7]));
-#else
-#pragma unroll
-  for (int i = 0; i < 8; ++i) atomicAdd(p + i, v[i]);
-#endif
 }
 
 }  // namespace occ

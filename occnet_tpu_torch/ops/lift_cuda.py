@@ -16,15 +16,19 @@ else is fp32 (the JAX einsum lift also rounds its hat weights and pass-1
 intermediate to bf16, so the two differ by a few bf16 steps).
 
 The backward (`lift_level_bwd`) is the exact transpose: each output cell
-scatters ``g * inv_count * weight`` back into the <= 4 feature pixels of every
+sends ``g * inv_count * weight`` back to the <= 4 feature pixels of every
 camera that sees it, accumulated in fp32 and returned in bf16 like the JAX
-package's `lift_pallas._lift_level_bwd`.
+package's `lift_pallas._lift_level_bwd`.  The plain version scatters; the
+kernel gathers, each feature pixel from the cells that reach it, through the
+transposed index `lift_bwd_index`.
 
 `lift_level` / `lift_level_bwd` launch the kernel for CUDA tensors and run the
 plain version for CPU tensors; they never fall back from one to the other.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,9 +37,8 @@ from occnet_tpu_torch.ops._build import I32, I64, P, Kernel
 LIFT = Kernel("occ_lift_level",
               [P, P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32,
                I64, P])
-LIFT_BWD = Kernel("occ_lift_level_bwd",
-                  [P, P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
-                   I32, I64, P])
+LIFT_BWD = Kernel("occ_lift_level_bwd", [P] * 6 + [I32] * 11 + [I64, P])
+LIFT_BWD_INDEX = Kernel("occ_lift_bwd_index", [P] * 5 + [I32] * 6 + [P])
 
 
 def _taps(pos1, pos2, steep, a, h, w):
@@ -192,16 +195,153 @@ def lift_level_bwd_plain(g: torch.Tensor, pos1: torch.Tensor,
     return dfeat.reshape(B, A, h, w, C).to(out_dtype)
 
 
+class LiftBwdIndex(NamedTuple):
+    """The transposed index of one level's lift, for `csrc/lift_bwd.cu`.
+
+    A line is one (b, camera, kk) with kk < w the image column x = kk (pass
+    order A: its pixels run down the column, j = image row) and kk >= w the
+    image row y = kk - w (order B: j = image column).  ``runs[b, a, kk, zr]``
+    holds, for the plane zr (camera, z-anchor, BEV row), the run [m_lo,
+    m_hi) of BEV columns whose pass-2 hat reaches the line's tap (floor(pos2)
+    = tap or tap - 1; packed as m_lo | m_hi << 16, 0 when no cell does) and
+    the plane's pass-1 position pos1[b, a, zr, kk] (as int32 bits), which
+    places the plane's line across the tap.  A plane of the other order has
+    no run on the line.
+
+    ``excess`` holds the (cell, tap) pairs the runs cover beyond the live
+    taps, on the host (behind the event ``ready`` for a CUDA index);
+    `check` reads it."""
+    runs: torch.Tensor       # (B, A, w + h, ZR, 2) int32
+    shape: tuple             # (B, A, ZR, M, h, w) of the level
+    excess: torch.Tensor     # (1,) int64 on the host
+    ready: Optional[object]  # torch.cuda.Event, None for CPU tensors
+
+    def check(self) -> None:
+        """Raise ValueError if the index's premise failed."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        excess = int(self.excess[0])
+        if excess != 0:
+            raise ValueError(
+                f"lift_bwd index: the runs of BEV columns reaching each tap "
+                f"cover {excess} (cell, tap) pairs more than are live: a "
+                f"plane's live cells are not one monotone run of pos2")
+
+
+def lift_bwd_index_plain(pos1: torch.Tensor, pos2: torch.Tensor,
+                         steep: torch.Tensor, hw):
+    """(runs, excess) of `LiftBwdIndex` in plain PyTorch: each run as the
+    smallest and largest m whose pass-2 hat reaches the tap (a dead position
+    p <= -1 and a tap outside the line skipped, as the sampler skips
+    them)."""
+    B, A, ZR, M = pos2.shape
+    h, w = hw
+    K1 = w + h
+    P = B * A * ZR
+    dev = pos2.device
+    p2 = pos2.reshape(P, M)
+    st = steep.reshape(P, 1)
+    k0 = torch.floor(p2).to(torch.int64)
+    k = torch.stack([k0, k0 + 1])                     # (2, P, M)
+    ok = (p2 > -1.0) & (k >= 0) & (k < torch.where(st, h, w))
+    m = torch.arange(M, device=dev, dtype=torch.int32)
+    slot = (torch.arange(P, device=dev)[:, None] * K1
+            + torch.where(ok, k + torch.where(st, w, 0), 0)).reshape(-1)
+    lo = torch.full((P * K1,), M, dtype=torch.int32, device=dev)
+    hi = torch.full((P * K1,), -1, dtype=torch.int32, device=dev)
+    lo.scatter_reduce_(0, slot, torch.where(ok, m, M).reshape(-1), "amin")
+    hi.scatter_reduce_(0, slot, torch.where(ok, m, -1).reshape(-1), "amax")
+    run = hi >= lo
+    excess = torch.where(run, hi - lo + 1, 0).sum() - ok.sum()
+    packed = torch.where(run, lo | ((hi + 1) << 16), 0)
+    runs = torch.stack([packed.reshape(P, K1),
+                        pos1.reshape(P, K1).view(torch.int32)], dim=-1)
+    return (runs.reshape(B, A, ZR, K1, 2).transpose(2, 3).contiguous(),
+            excess.reshape(1))
+
+
+def lift_bwd_index_cuda(pos1: torch.Tensor, pos2: torch.Tensor,
+                        steep: torch.Tensor, hw):
+    """`lift_bwd_index_plain` as one launch of `occ_lift_bwd_index` (a warp
+    a plane); the excess stays on the device."""
+    B, A, ZR, M = pos2.shape
+    h, w = hw
+    dev = pos2.device
+    if dev.type != "cuda":
+        raise ValueError(f"lift_bwd index kernel: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    for t, dt, shape in ((pos1, torch.float32, (B, A, ZR, w + h)),
+                         (pos2, torch.float32, (B, A, ZR, M)),
+                         (steep, torch.bool, (B, A, ZR))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"lift_bwd index kernel: expected contiguous "
+                             f"{dt} {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if M >= 1 << 15:
+        raise ValueError(f"lift_bwd index kernel: M = {M} BEV columns must "
+                         f"be < 32768")
+    runs = torch.empty(B, A, w + h, ZR, 2, dtype=torch.int32, device=dev)
+    excess = torch.zeros(1, dtype=torch.int64, device=dev)
+    LIFT_BWD_INDEX(pos1.data_ptr(), pos2.data_ptr(), steep.data_ptr(),
+                   runs.data_ptr(), excess.data_ptr(), B, A, ZR, M, h, w,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    return runs, excess
+
+
+def lift_bwd_index(pos1: torch.Tensor, pos2: torch.Tensor,
+                   steep: torch.Tensor, hw, impl: str = "auto"
+                   ) -> LiftBwdIndex:
+    """Build the `LiftBwdIndex` of one level from the forward's geometry:
+    the kernel for CUDA tensors (its excess copied to pinned memory behind
+    an event, so nothing waits for the card here), the plain version for
+    CPU tensors.
+
+    It rests on the lift's geometry: within a plane, pos2 along the BEV
+    column m is one Moebius function of m over one interval of live cells,
+    so the cells whose pass-2 hat reaches a tap are one contiguous run of m.
+    `LiftBwdIndex.check` raises ValueError if the runs cover more (cell,
+    tap) pairs than are live, and for CPU tensors `lift_bwd_index` calls it
+    at once."""
+    B, A, ZR, M = pos2.shape
+    h, w = hw
+    impl = _resolve(impl, pos2)
+    if impl == "cuda":
+        runs, excess = lift_bwd_index_cuda(pos1, pos2, steep, hw)
+        host = torch.empty(1, dtype=torch.int64, pin_memory=True)
+        host.copy_(excess, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return LiftBwdIndex(runs, (B, A, ZR, M, h, w), host, ready)
+    if impl != "plain":
+        raise ValueError(f"unknown lift impl {impl!r}")
+    runs, excess = lift_bwd_index_plain(pos1, pos2, steep, hw)
+    index = LiftBwdIndex(runs, (B, A, ZR, M, h, w), excess, None)
+    index.check()
+    return index
+
+
+# a lift_bwd block of 256 threads takes one line and 8 * cg of its channels
+# in groups of cg lanes: the widest groups that still give a level this many
+# blocks, so that every SM has work while each block's fixed cost (loading
+# and sorting its line's planes) is paid as few times as possible: 32 / 16 /
+# 8 / 4 lanes at the four turbo_occ levels at B = 1.
+_MIN_BLOCKS = 1600
+
+
 def lift_level_bwd_cuda(g: torch.Tensor, pos1: torch.Tensor,
                         pos2: torch.Tensor, steep: torch.Tensor,
                         inv_count: torch.Tensor, hw,
-                        out_dtype: torch.dtype = torch.bfloat16
+                        out_dtype: torch.dtype = torch.bfloat16,
+                        index: Optional[LiftBwdIndex] = None
                         ) -> torch.Tensor:
-    """`lift_level_bwd_plain` as one launch of the CUDA kernel (fp32 atomics
-    into a zeroed buffer), then one cast to ``out_dtype``.  ``g``
-    (B, ZR, M, C) bf16 or fp32 may be a strided view with contiguous
-    (ZR, M, C) per batch element, e.g. one level of the stacked
-    (B, L, Z, Q, C) gradient."""
+    """`lift_level_bwd_plain` as one call of the CUDA kernel (two launches
+    in stream order, pass order A then B, every output element written by
+    one thread, no atomics).  ``g`` (B, ZR, M, C) bf16 or fp32 may be a
+    strided view with contiguous (ZR, M, C) per batch element, e.g. one
+    level of the stacked (B, L, Z, Q, C) gradient.  ``index`` is the
+    level's `lift_bwd_index` (built here when not given); it raises if the
+    index's premise failed."""
     B, ZR, M, C = g.shape
     A = pos2.shape[1]
     h, w = hw
@@ -226,28 +366,45 @@ def lift_level_bwd_cuda(g: torch.Tensor, pos1: torch.Tensor,
             or g[0].stride() != (M * C, C, 1):
         raise ValueError(f"lift_bwd kernel: bad gradient {g.dtype} "
                          f"{tuple(g.shape)} {g.stride()}")
-    if C % 8 or C > 2048 or ZR % R or g.data_ptr() % 16 \
-            or g.stride(0) % 8:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"lift_bwd kernel: output bf16 or fp32, got "
+                         f"{out_dtype}")
+    if C % 8 or ZR % R or g.data_ptr() % 16 or g.stride(0) % 8:
         raise ValueError(f"lift_bwd kernel: C={C} must be a multiple of 8 "
-                         f"<= 2048 with a 16-byte aligned gradient")
-    # zeros, never empty: every feature pixel no cell reaches must read 0
-    dfeat = torch.zeros(B, A, h, w, C, dtype=torch.float32, device=dev)
-    LIFT_BWD(g.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
-             steep.data_ptr(), inv_count.data_ptr(), dfeat.data_ptr(),
-             int(g.dtype == torch.bfloat16), B, A, h, w, C, ZR, R, M,
-             g.stride(0), torch.cuda.current_stream(dev).cuda_stream)
-    return dfeat.to(out_dtype)
+                         f"with a 16-byte aligned gradient")
+    if index is None:
+        index = lift_bwd_index(pos1, pos2, steep, hw, impl="cuda")
+    if index.runs.device != dev or index.shape != (B, A, ZR, M, h, w):
+        raise ValueError(f"lift_bwd kernel: the index of level "
+                         f"{index.shape} is not this level's "
+                         f"{(B, A, ZR, M, h, w)}")
+    index.check()
+    widths = [n for n in (32, 16, 8, 4, 2, 1) if (C // 8) % n == 0]
+    cg = next((n for n in widths
+               if B * A * (w + h) * (C // (8 * n)) >= _MIN_BLOCKS),
+              widths[-1])
+    # no zeros needed: order A writes every pixel of the fp32 scratch, order
+    # B reads it and writes every pixel of the output (in place for fp32)
+    out = torch.empty(B, A, h, w, C, dtype=out_dtype, device=dev)
+    tmp = out if out_dtype == torch.float32 else torch.empty(
+        B, A, h, w, C, dtype=torch.float32, device=dev)
+    LIFT_BWD(g.data_ptr(), pos2.data_ptr(), inv_count.data_ptr(),
+             index.runs.data_ptr(), tmp.data_ptr(), out.data_ptr(),
+             int(g.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+             B, A, h, w, C, ZR, R, M, cg, g.stride(0),
+             torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 def lift_level_bwd(g, pos1, pos2, steep, inv_count, hw,
-                   impl: str = "auto", out_dtype=torch.bfloat16
-                   ) -> torch.Tensor:
-    """Dispatch as `lift_level`: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+                   impl: str = "auto", out_dtype=torch.bfloat16,
+                   index: Optional[LiftBwdIndex] = None) -> torch.Tensor:
+    """Dispatch as `lift_level`: the kernel for CUDA tensors (through
+    ``index``, built when not given), the plain version for CPU tensors."""
     impl = _resolve(impl, g)
     if impl == "cuda":
         return lift_level_bwd_cuda(g, pos1, pos2, steep, inv_count, hw,
-                                   out_dtype)
+                                   out_dtype, index)
     if impl == "plain":
         return lift_level_bwd_plain(g, pos1, pos2, steep, inv_count, hw,
                                     out_dtype)

@@ -17,9 +17,11 @@ align_corners=False: x = loc_x * w - 0.5, y = loc_y * h - 0.5, and a corner
 outside the level adds nothing.  Corner weights and attention stay fp32 (the
 packed form and the Pallas kernels do not round the attention to the value
 dtype, unlike the JAX per-corner reference), sums are fp32, and the output is
-rounded once to the value dtype.  The JAX function switches to its per-corner
-form for levels under 2 cells; in fp32 that form computes the same thing, and
-the tests keep bf16 values off such levels.
+rounded once to the value dtype (the plain version sums per level and
+corner, the points through one PyTorch sum, and the kernel follows that
+order).  The JAX function switches to its per-corner form for levels under 2
+cells; in fp32 that form computes the same thing, and the tests keep bf16
+values off such levels.
 
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors, never falling back from one to the other.  The CUDA path is
@@ -105,6 +107,11 @@ def msda_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
         raise ValueError("msda kernel: inputs must be contiguous")
     if L > MAX_LEVELS:
         raise ValueError(f"msda kernel: at most {MAX_LEVELS} levels, got {L}")
+    vec = 16 // value.element_size()      # channels of one 16-byte load
+    if D % vec or 32 % (D // vec) or value.data_ptr() % 16:
+        raise ValueError(f"msda kernel: a head's D = {D} channels must be "
+                         f"a multiple of {vec} ({value.dtype}) with "
+                         f"32 / (D / {vec}) whole, and value 16-byte aligned")
     hw = (ctypes.c_int * (2 * MAX_LEVELS))(
         *[int(s) for hw_ in spatial_shapes for s in hw_],
         *([0] * (2 * (MAX_LEVELS - L))))

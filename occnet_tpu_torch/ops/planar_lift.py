@@ -20,7 +20,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from occnet_tpu_torch.ops.lift_cuda import lift_level, lift_level_bwd
+from occnet_tpu_torch.ops.lift_cuda import (_resolve, lift_bwd_index,
+                                            lift_level, lift_level_bwd)
 
 
 def z_anchors(pc_range: Sequence[float], num_z: int) -> np.ndarray:
@@ -151,8 +152,10 @@ class _LiftAverage(torch.autograd.Function):
     """The per-level lift loop with its transpose as the backward (the
     counterpart of `lift_pallas.lift_level`'s custom VJP).  It allocates and
     owns the (B, L, Z, Q, C) output; it saves only the per-level geometry
-    (pos1, pos2, steep) and inv_count, ~20 MB at level 0 of the full width.
-    Geometry and count get no gradient, as in the JAX package."""
+    (pos1, pos2, steep) and inv_count, ~20 MB at level 0 of the full width,
+    and, when the backward will run the kernel, each level's transposed
+    index (`lift_bwd_index`, 24 MB at level 0), built here from the same
+    geometry.  Geometry and count get no gradient, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, geoms, inv_count, shape, out_dtype, impl, *feats):
@@ -165,6 +168,11 @@ class _LiftAverage(torch.autograd.Function):
         ctx.save_for_backward(inv_count, *[t for g in geoms for t in g])
         ctx.hws = [tuple(f.shape[2:4]) for f in feats]
         ctx.impl = impl
+        ctx.indices = [None] * len(feats)
+        if any(ctx.needs_input_grad[5:]) \
+                and _resolve(impl, inv_count) == "cuda":
+            ctx.indices = [lift_bwd_index(*geo, hw)
+                           for geo, hw in zip(geoms, ctx.hws)]
         return U_bar
 
     @staticmethod
@@ -177,7 +185,8 @@ class _LiftAverage(torch.autograd.Function):
             pos1, pos2, steep = flat[3 * lvl: 3 * lvl + 3]
             gl = g[:, lvl].view(B, pos2.shape[2], pos2.shape[3], C)
             dfeats.append(lift_level_bwd(gl, pos1, pos2, steep, inv_count,
-                                         hw, impl=ctx.impl))
+                                         hw, impl=ctx.impl,
+                                         index=ctx.indices[lvl]))
         return (None, None, None, None, None, *dfeats)
 
 

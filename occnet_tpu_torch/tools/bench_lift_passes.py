@@ -6,7 +6,10 @@
 Shapes of the JAX tool: A = 6 cameras, a 116 x 200 x 256 feature level,
 Z = 8 anchors over a 200 x 200 BEV grid, so ZR = 1600 rows, padded to
 ZR_pad = 1664, w_pad = 200, h_pad = 120; random bf16 tmp slabs, random
-order-A positions and every order-B position dead (-2).  Cases:
+order-A positions and every order-B position dead (-2).  The fused lift's
+positions are random too, but sorted along each plane's BEV row: the
+geometry makes them monotone there, and the backward kernel's index rests on
+that.  Cases:
 
 - ``pass2``: pass-2 from the tmp slabs (`ops/lift_pass2.py`, the
   counterpart of Pallas kernel #7, `lift_pallas._pass2`);
@@ -50,13 +53,15 @@ def pass2_inputs(device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
 def lift_inputs(device, seed: int = 1) -> Dict[str, torch.Tensor]:
     """Level-0 inputs of the fused lift, B = 1: random features, order-A
-    positions U(0, w) along and U(0, h) across every line."""
+    positions U(0, w) along (sorted along each BEV row, as the geometry
+    orders them) and U(0, h) across every line."""
     g = torch.Generator(device=device).manual_seed(seed)
     return {
         "feat": torch.randn(1, A, H, W, C, generator=g,
                             device=device).to(torch.bfloat16),
         "pos1": torch.rand(1, A, ZR, W + H, generator=g, device=device) * H,
-        "pos2": torch.rand(1, A, ZR, M, generator=g, device=device) * W,
+        "pos2": torch.sort(torch.rand(1, A, ZR, M, generator=g,
+                                      device=device) * W, dim=-1)[0],
         "steep": torch.zeros(1, A, ZR, dtype=torch.bool, device=device),
         "inv_count": torch.ones(1, BEV_H * M, device=device),
         "g": torch.randn(1, ZR, M, C, generator=g,

@@ -24,9 +24,12 @@ synthetic (no dataset loader is ported):
   from 0) with `training.eval_loop.run_evaluation`.
 
 Logs loss, grad_norm and lr every ``--log-interval`` steps (default every
-step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a final
-checkpoint (``ckpt.pt``) under ``--work-dir``.  Returns the logged metrics,
-evaluations included.
+step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a checkpoint
+(``ckpt.pt``) every ``--ckpt-interval-epochs`` epochs and at the last step
+under ``--work-dir``; ``--resume`` continues from it.  The exactness
+certificates (`cert_overflow`) are summed on the device and checked at every
+log: a nonzero sum aborts the run.  Returns the logged metrics, evaluations
+included.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--synthetic-render-scale", type=int, default=1,
                    help="ray-cast the synthetic scenes at 1/N resolution "
                         "and pixel-repeat up to the model size")
+    p.add_argument("--ckpt-interval-epochs", type=int, default=1,
+                   help="save <work-dir>/ckpt.pt every N epochs and at the "
+                        "last step")
     p.add_argument("--eval-interval-epochs", type=int, default=0,
                    help="run ray-metric evaluation on the val split every N "
                         "epochs (0 = off)")
@@ -219,8 +225,26 @@ def main(argv: Optional[Sequence[str]] = None):
                     np.int64)
                 batch = to_device(batch, device)
             metrics = step_fn(state, batch)
+            # the exactness certificates (sca_topk_overflow,
+            # dcn_window_overflow) summed on the device, read at every log:
+            # a nonzero sum means the static fast paths left the reference
+            # semantics and the gradients since then are those of another
+            # function, so the run aborts (within --log-interval steps)
+            overflow = (metrics["cert_overflow"] if step == step0
+                        else overflow + metrics["cert_overflow"])
             if step % args.log_interval == 0 or step == total_steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
+                m["cert_overflow"] = float(overflow)
+                if m["cert_overflow"]:
+                    events.write(json.dumps({"step": step, "tag": "abort",
+                                             **m}) + "\n")
+                    raise SystemExit(
+                        f"exactness certificate violated at or before step "
+                        f"{step}: {int(m['cert_overflow'])} overflowed "
+                        f"samples (sca_topk_overflow / dcn_window_overflow); "
+                        f"raise model.encoder.sca.max_queries_per_cam or "
+                        f"the backbone's DCN window radius, or use gather "
+                        f"mode")
                 if not (np.isfinite(m["loss"]) and np.isfinite(
                         m["grad_norm"])):
                     raise SystemExit(f"non-finite loss or grad norm at step "
@@ -232,7 +256,11 @@ def main(argv: Optional[Sequence[str]] = None):
                          m["grad_norm"], m["lr"], dt)
                 events.write(json.dumps({"step": step, "s_per_it": dt, **m})
                              + "\n")
-                history.append(m)
+                history.append({"step": step, **m})
+            if ((step + 1) % (epoch_len * args.ckpt_interval_epochs) == 0
+                    or step == total_steps - 1):
+                checkpoint.save(ckpt_path, state, cfg)
+                log.info("checkpoint @ step %d: %s", state.step, ckpt_path)
             if (val_dataset is not None and (step + 1) % epoch_len == 0
                     and (step // epoch_len + 1) % args.eval_interval_epochs
                     == 0):
@@ -242,8 +270,6 @@ def main(argv: Optional[Sequence[str]] = None):
                 events.write(json.dumps({"step": step + 1, "tag": "eval",
                                          **scores}) + "\n")
                 history.append({"step": step + 1, "tag": "eval", **scores})
-    checkpoint.save(ckpt_path, state, cfg)
-    log.info("checkpoint @ step %d: %s", state.step, ckpt_path)
     if device.type == "cuda":
         log.info("peak allocated: %.3f GiB",
                  torch.cuda.max_memory_allocated(device) / 2 ** 30)

@@ -151,9 +151,11 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
     pad) or float (already processed), ``ego2img``, ``voxel_semantics``,
     ``voxel_flow`` and optionally ``mask_camera``, all on the model's
     device.  Metrics are 0-d tensors (no device sync): loss, loss_occ,
-    loss_flow, grad_norm (pre-clip), lr, cert_overflow (the gather
-    encoder's `sca_topk_overflow`; 0 in dense mode, which has no certified
-    fast path).  ``mark(name)``, when given, is called after
+    loss_flow, grad_norm (pre-clip), lr, cert_overflow (the sum of every
+    `*_overflow` certificate of the forward, the gather encoder's
+    `sca_topk_overflow` and the window DCN's `dcn_window_overflow`, as
+    `occnet_tpu.training.train.collect_overflow` sums them; 0 when the
+    config has neither).  ``mark(name)``, when given, is called after
     the "forward", "backward" and "optimizer" phases (for timing)."""
     schedule = make_lr_schedule(cfg)
     augment = make_device_train_augmenter(
@@ -181,10 +183,12 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
         if mark:
             mark("optimizer")
         state.step += 1
+        cert = torch.zeros((), dtype=torch.int64, device=dev)
+        for k, v in outs.items():
+            if k.endswith("_overflow"):
+                cert = cert + v
         return {"loss": loss.detach(), "loss_occ": loss_occ.detach(),
                 "loss_flow": loss_flow.detach(), "grad_norm": grad_norm,
-                "lr": torch.tensor(lr),
-                "cert_overflow": outs.get("sca_topk_overflow",
-                                          torch.tensor(0))}
+                "lr": torch.tensor(lr), "cert_overflow": cert}
 
     return train_step

@@ -218,3 +218,111 @@ def test_feat_grad_reaches_through_the_autograd_function():
         assert torch.isfinite(f.grad.float()).all()
         assert f.grad.float().abs().max() > 0
     assert e2i.grad is None
+
+
+def _gather_through_index(g, pos2, inv_count, index, hw):
+    """The kernel's sum (`csrc/lift_bwd.cu`) in plain PyTorch: for every
+    line (b, camera, kk) and every plane with a run on it, every cell of the
+    run [m_lo, m_hi): the forward's weight w2 * w1 (dead cells and cells
+    whose pass-2 hat misses the line's tap skipped) times g * inv_count,
+    added to the line's pixels j0 and j0 + 1 = floor(pos1) (+ 1) that lie
+    on the image.  Returns fp32 dfeat (B, A, h, w, C)."""
+    B, ZR, M, C = g.shape
+    A = pos2.shape[1]
+    h, w = hw
+    R = inv_count.shape[1] // M
+    lo = index.runs[..., 0] & 0xffff
+    hi = index.runs[..., 0] >> 16
+    p1 = index.runs[..., 1].contiguous().view(torch.float32)
+    b, a, kk, zr = (hi > lo).nonzero(as_tuple=True)
+    n_m = (hi - lo)[b, a, kk, zr]
+    i_c = torch.repeat_interleave(torch.arange(b.numel()), n_m)
+    m = lo[b, a, kk, zr][i_c] + torch.arange(int(n_m.sum())) \
+        - torch.repeat_interleave(torch.cumsum(n_m, 0) - n_m, n_m)
+    b, a, kk, zr = b[i_c], a[i_c], kk[i_c], zr[i_c]
+    order_b = kk >= w
+    k = torch.where(order_b, kk - w, kk)
+    n1 = torch.where(order_b, w, h)
+    p2 = pos2[b, a, zr, m]
+    k0 = torch.floor(p2)
+    f2 = p2 - k0
+    w2 = torch.where(k0 == k, 1.0 - f2, torch.where(k0 + 1 == k, f2, 0.0))
+    w2 = torch.where(p2 > -1.0, w2, 0.0)
+    p1c = p1[b, a, kk, zr]
+    j0 = torch.floor(p1c)
+    f1 = p1c - j0
+    gi = g.float()[b, zr, m] * inv_count[b, (zr % R) * M + m][:, None]
+    out = torch.zeros(B * A * h * w, C)
+    for j, w1 in ((j0.long(), 1.0 - f1), (j0.long() + 1, f1)):
+        ok = (p1c > -1.0) & (j >= 0) & (j < n1) & (w2 != 0)
+        y, x = torch.where(order_b, k, j), torch.where(order_b, j, k)
+        pix = ((b * A + a) * h + y) * w + x
+        out.index_add_(0, pix[ok], (w2 * w1)[ok][:, None] * gi[ok])
+    return out.reshape(B, A, h, w, C)
+
+
+def _level_geometry(e2i, h, w, bev_hw=(14, 14), num_z=4):
+    z = torch.from_numpy(planar_lift.z_anchors(PC_RANGE, num_z))
+    H = planar_lift.plane_homographies(e2i, PC_RANGE, z, bev_hw)
+    Ml = planar_lift.feature_homographies(H, h, w, IMG_HW)
+    pos1, pos2, steep, valid = planar_lift.level_geometry(Ml, bev_hw, h, w)
+    count = valid.any(dim=2).sum(dim=1).float().clamp(min=1.0)
+    return pos1, pos2, steep, (1.0 / count).reshape(e2i.shape[0], -1)
+
+
+@pytest.mark.parametrize("stride", [4, 8, 16, 32])
+@pytest.mark.parametrize("rig", ["yawed_b2", "no_live_rows_in_order_a"])
+def test_lift_bwd_index_gathers_the_plain_scatter(rig, stride):
+    """The kernel's transposed index: a gather through each line's runs
+    [m_lo, m_hi) of BEV columns equals `lift_level_bwd_plain` at every level
+    (strides 4-32), within fp32 summation order (1e-5 of max|dfeat|).  Rigs:
+    a 4-camera ring yawed by 0.1 rad per batch element at B = 2, and the rig
+    of `test_lift_camera_with_no_live_rows_in_one_order`.  A plane has runs
+    only on the lines of its own pass order, and the runs hold exactly the
+    live (cell, tap) pairs."""
+    from occnet_tpu_torch.ops import lift_cuda
+    rng = np.random.RandomState(11 + stride)
+    batch = 2 if rig == "yawed_b2" else 1
+    e2i = torch.from_numpy(_ring_cameras(n_cam=4, batch=batch,
+                                         yaw0=0.3 if batch == 2 else 0.0))
+    h, w = IMG_HW[0] // stride, IMG_HW[1] // stride
+    pos1, pos2, steep, inv = _level_geometry(e2i, h, w)
+    ZR = pos2.shape[2]
+    g = torch.from_numpy(rng.randn(batch, ZR, 14, 8).astype(np.float32))
+    index = lift_cuda.lift_bwd_index(pos1, pos2, steep, (h, w))
+    assert index.runs.dtype == torch.int32
+    assert index.runs.shape == (batch, 4, w + h, ZR, 2)
+    assert int(index.excess[0]) == 0
+    has_run = (index.runs[..., 0] != 0)                 # (B, A, w + h, ZR)
+    st = steep[:, :, None, :]
+    assert not (has_run[:, :, :w] & st).any()
+    assert not (has_run[:, :, w:] & ~st).any()
+    if rig == "no_live_rows_in_order_a":
+        assert has_run[:, :, w:].any() and not has_run[0, 0, :w].any()
+    got = _gather_through_index(g, pos2, inv, index, (h, w))
+    want = lift_cuda.lift_level_bwd_plain(g, pos1, pos2, steep, inv,
+                                          (h, w), out_dtype=torch.float32)
+    scale = want.abs().max().item()
+    assert scale > 0
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_lift_bwd_index_raises_when_a_run_is_not_monotone():
+    """The index rests on the cells that reach a tap being one contiguous
+    run of BEV columns.  Killing the middle one of three live cells whose
+    outer two share a tap breaks it (the run of that tap now holds a cell
+    that does not reach it), and the index build raises instead of returning a
+    different gradient."""
+    from occnet_tpu_torch.ops.lift_cuda import lift_bwd_index
+    e2i = torch.from_numpy(_ring_cameras(n_cam=4, batch=1))
+    pos1, pos2, steep, _ = _level_geometry(e2i, 16, 24)
+    lift_bwd_index(pos1, pos2, steep, (16, 24))
+    p2 = pos2[0]
+    k = torch.floor(p2)
+    three = (p2[..., :-2] > -1) & (p2[..., 1:-1] > -1) & (p2[..., 2:] > -1)
+    shared = (k[..., :-2] - k[..., 2:]).abs() <= 1
+    a, zr, m = [int(i) for i in (three & shared).nonzero()[0]]
+    bad = pos2.clone()
+    bad[0, a, zr, m + 1] = -2.0
+    with pytest.raises(ValueError, match="not one monotone run"):
+        lift_bwd_index(pos1, bad, steep, (16, 24))

@@ -213,3 +213,50 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "NOJAX OK" in r.stdout, r.stderr[-2000:]
+
+
+def _leaves(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("name", ["tiny_turbo_occ", "tiny_occ"])
+def test_init_distributions_match_flax_init(name):
+    """`init_jax_style_variables` draws every leaf from the distribution
+    flax's `OccNet.init` draws it from: per leaf and seed (0, 1, 2), mean,
+    std, min and max agree.  For n iid draws of std s (the larger of the
+    two leaves' stds): |mean diff| <= 6 s sqrt(2/n) (six standard errors of
+    a difference of means), |std diff| <= 6 s / sqrt(n) (the sample std's
+    standard error is <= s / sqrt(2n) for the normal, truncated normal and
+    uniform laws used), and |min diff|, |max diff| <= 6 s / sqrt(2 ln n)
+    (the extremes of n normal draws spread as 1 / sqrt(2 ln n); bounded laws
+    spread less).  Constant leaves (zeros, ones, the radial offset grid)
+    have s = 0 and must agree exactly.  Leaf shapes are independent of the
+    image size, so the flax init runs on 64 x 96 images, compiled at XLA's
+    lowest optimisation level (the draws are integer threefry arithmetic,
+    the same at any level; the compile is most of the test's time)."""
+    from occnet_tpu import config as jax_config
+    cfg = getattr(jax_config, name)()
+    m = dataclasses.replace(cfg.model, img_h=64, img_w=96)
+    jm = JaxOccNet(m)
+    img = jnp.zeros((1, m.num_cams, 64, 96, 3), jnp.float32)
+    e2i = jnp.asarray(np.tile(np.eye(4, dtype=np.float32),
+                              (1, m.num_cams, 1, 1)))
+    init = jax.jit(lambda key: jm.init({"params": key}, img, e2i)).lower(
+        jax.random.PRNGKey(0)).compile({"xla_backend_optimization_level": 0})
+    for seed in range(3):
+        ref = _leaves(init(jax.random.PRNGKey(seed)))
+        ours = _leaves(init_jax_style_variables(cfg, seed=seed))
+        assert ours.keys() == ref.keys()
+        for path, a in ours.items():
+            b = ref[path].astype(np.float64)
+            a = a.astype(np.float64)
+            assert a.shape == b.shape, path
+            n = a.size
+            s = max(a.std(), b.std())
+            tol = {"mean": 6 * s * np.sqrt(2 / n), "std": 6 * s / np.sqrt(n),
+                   "min": 6 * s / np.sqrt(2 * np.log(max(n, 2))),
+                   "max": 6 * s / np.sqrt(2 * np.log(max(n, 2)))}
+            for stat, t in tol.items():
+                x, y = getattr(a, stat)(), getattr(b, stat)()
+                assert abs(x - y) <= t, (name, seed, path, stat, x, y, t)
