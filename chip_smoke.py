@@ -19,7 +19,8 @@ Phases (each raises on failure, so any failure exits nonzero):
               draws a level (the gap over sum|u g|), and at
               16 z-anchors, where a line's planes take two tiles); the
               lift_bwd index kernel bitwise equal to its plain version at
-              every level, and timed
+              every level, and timed; tap_bwd within TAP_TOL, two launches
+              bitwise equal, B=2 bitwise equal to two B=1 calls
   7. train parity  one train step of tiny_turbo_occ in fp32 on the card and
               on the CPU, same weights and batch: same loss and gradients
   8. train    turbo_occ full width, bf16, B=1, config defaults (grid mask,
@@ -42,20 +43,30 @@ Phases (each raises on failure, so any failure exits nonzero):
               msda kernel timed on the first encoder layer's TSA and SCA
               inputs captured from a request (real locations); then one
               request split by CUDA events and one under torch.profiler
- 12. kernels (dcn)  the DCNv2 sampling kernel vs its plain version at the
-              four DCN shapes of R101-DCN (B = 6; stride 1 and 2; bf16 and
-              f32), offsets N(0, 2^2) px with 1 % at +/-30 px; the window
-              certificate at R = 3 card vs CPU; times and the bound
+ 12. kernels (dcn)  at the four DCN shapes of R101-DCN (B = 6; stride 1
+              and 2), offsets N(0, 2^2) px with 1 % at +/-30 px: the
+              sampling kernel vs its plain version (bf16 and f32, bitwise);
+              the fused DCN kernel (bf16) vs deform_conv_plain within one
+              bf16 step or 2^-12 sum|cols W|, its window certificate at
+              R = 3 equal to window_overflow card and CPU, two launches
+              bitwise equal, B = 6 bitwise equal to six B = 1 calls; the
+              fused kernel timed in turns against the sampling kernel +
+              torch.matmul and against torch.matmul alone; the bounds
  13. dcn parity  tiny R101-DCN in fp32 with window DCN, dense and gather
               encoders, on the card and on the CPU: same logits, same
-              certificates, 26 deform_sample launches
+              certificates, 26 deform_sample launches (the fp32 path)
  14. serve turbo_r101_dcn_occ  full width, bf16 (window DCN, dense
               encoder), conv_offset drawn from a seed and calibrated to
               |offset| <= 2.5 px: every layer's needed_radius, 3 requests
-              with 26 deform_sample + 4 lift + 4 tap launches each and
-              dcn_window_overflow 0; one request split by CUDA events
+              with 26 deform_conv + 0 deform_sample + 4 lift + 4 tap
+              launches each, no window_overflow call and
+              dcn_window_overflow 0, host clock beside CUDA events; the
+              logits against the same request on the two-step route
+              (sampling kernel + torch.matmul + window_overflow); one
+              request under torch.profiler; one request split by CUDA
+              events on each route
  15. serve r101_dcn_occ  the same with gather DCN and the exact encoder:
-              26 deform_sample + 8 msda launches a request,
+              26 deform_conv + 8 msda launches a request,
               sca_topk_overflow 0
  16. kernels (eval)  pass-2 from a tmp slab (Pallas #7) vs its plain
               version at the bench tool's shapes (one bf16 step), with a
@@ -74,11 +85,13 @@ Phases (each raises on failure, so any failure exits nonzero):
               frame, 6 DDA launches a scene, 4 lift + 4 tap + 1 fan
               launches a frame, a per-frame split by CUDA events
 The last lines are the kernels JSON (each kernel with its bound_ms: the
-larger of its compulsory bytes over 3.35 TB/s and its fp32 operations over
-67 TFLOP/s), the nvidia-smi line and {"ok": true, "device": {...}}.  Needs
-no network and no JAX.
+largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
+67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
+989 TFLOP/s), the nvidia-smi line and {"ok": true, "device": {...}}.
+Needs no network and no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -102,11 +115,26 @@ MSDA_BF16_TOL = 2e-2     # bf16 values: one bf16 step (the tap bound)
 MSDA_F32_ATOL, MSDA_F32_RTOL = 2e-5, 1e-5   # tests/test_msda.py:192
 HBM_TBS = 3.35           # H100 SXM device-memory peak, TB/s
 FP32_TFLOPS = 67.0       # H100 SXM fp32 peak outside the tensor cores
+BF16_TC_TFLOPS = 989.0   # H100 SXM dense bf16 tensor-core peak
 # deform_sample: kernel and plain version take the same fp32 operations in
 # the same order, so f32 results are expected bitwise; the bound allows
 # summation noise at 1e-6 of the largest input
 DCN_F32_RTOL = 1e-6
 DCN_RADIUS = 3           # the served window radius of turbo_r101_dcn_occ
+# the fused DCN kernel against its plain version: both round an fp32 sum of
+# the same bf16 columns x weight products to bf16, but the tensor cores add
+# in another order than an fp32 matmul, so the two may be one bf16 step
+# apart, plus fp32 ordering noise where the row cancels (x sum_k |cols W|)
+DCN_CONV_RTOL = 2.0 ** -7
+DCN_CONV_ATOL = 2.0 ** -12
+# whole bf16 R101-DCN requests, fused DCN against the two-step route
+# (sampling kernel + torch.matmul): argmax agreement on the voxels whose top
+# two logits are not tied in bf16 (a tie flips under any one-step change:
+# the two-step route and the plain product of the same columns agree on
+# 98.9 % of all voxels of turbo_r101_dcn_occ), and on all voxels no further
+# below the two-step / plain agreement than this slack
+ARGMAX_AGREE = 0.99
+ARGMAX_FLOOR_SLACK = 5e-3
 DCN_MAX_PX = 2.5         # largest |offset| after calibration: floor in [-3, 2]
 # the marchers: kernel and plain version take the same fp32 operations, so
 # distances are expected bitwise; the bound allows 1e-6 relative
@@ -128,13 +156,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def least_time(nb: float, flops: float):
+def least_time(nb: float, flops: float, bf16_tc_flops: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for work
     that must move ``nb`` bytes (each input read once, each output written
-    once) and do ``flops`` fp32 operations on the CUDA cores: the larger of
-    bytes over 3.35 TB/s and operations over 67 TFLOP/s."""
+    once), do ``flops`` fp32 operations on the CUDA cores and
+    ``bf16_tc_flops`` bf16 operations on the tensor cores: the largest of
+    bytes over 3.35 TB/s, fp32 operations over 67 TFLOP/s and tensor-core
+    operations over 989 TFLOP/s."""
     t_bytes = nb / (HBM_TBS * 1e12) * 1e3
     t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
+    t_tc = bf16_tc_flops / (BF16_TC_TFLOPS * 1e12) * 1e3
+    if t_tc > max(t_bytes, t_ops):
+        return t_tc, "operations (tensor cores)"
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -537,15 +570,32 @@ def phase_kernels_bwd(torch, cfg, results):
     log(f"  lift_bwd 4 levels B=1: kernel {k:.4f} ms, plain {p:.4f} ms; "
         f"bound {b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
 
+    phase_tap_bwd(torch, m, gen, results)
+
+
+def phase_tap_bwd(torch, m, gen, results):
+    """The tap-attention backward kernel at the main-path shape (B = 1,
+    bf16 v and attn, fp32 g) against its plain version within TAP_TOL, two
+    launches bitwise equal, B = 2 bitwise equal to two B = 1 calls; timed in
+    turns."""
+    from occnet_tpu_torch.ops import tsa
+    dev = torch.device("cuda")
+    C = m.embed_dims
     heads = m.encoder.tsa.num_heads
     nq = m.encoder.tsa.num_bev_queue
-    v = torch.randn(1, nq, m.bev_h, m.bev_w, C, generator=gen, device=dev
-                    ).to(torch.bfloat16)
-    logits = torch.randn(1, m.bev_h, m.bev_w, nq, len(tsa.TSA_TAPS), heads,
-                         generator=gen, device=dev)
-    attn = torch.softmax(logits, dim=4).to(torch.bfloat16)
-    g = torch.randn(1, m.bev_h, m.bev_w, C, generator=gen, device=dev)
+
+    def draw(B):
+        v = torch.randn(B, nq, m.bev_h, m.bev_w, C, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        logits = torch.randn(B, m.bev_h, m.bev_w, nq, len(tsa.TSA_TAPS),
+                             heads, generator=gen, device=dev)
+        attn = torch.softmax(logits, dim=4).to(torch.bfloat16)
+        g = torch.randn(B, m.bev_h, m.bev_w, C, generator=gen, device=dev)
+        return v, attn, g
+
+    v, attn, g = draw(1)
     dvk, dak = tsa.tap_attention_bwd_cuda(v, attn, g)
+    dvk2, dak2 = tsa.tap_attention_bwd_cuda(v, attn, g)
     dvp, dap = tsa.tap_attention_bwd_plain(v, attn, g)
     torch.cuda.synchronize()
     errs = []
@@ -560,6 +610,21 @@ def phase_kernels_bwd(torch, cfg, results):
         if not (bound >= 0 and torch.isfinite(a).all().item()):
             raise RuntimeError(f"tap_bwd kernel disagrees with plain ({name})")
         errs.append(err)
+    same = torch.equal(dvk, dvk2) and torch.equal(dak, dak2)
+    v2, attn2, g2 = draw(2)
+    dv2, da2 = tsa.tap_attention_bwd_cuda(v2, attn2, g2)
+    split = True
+    for b in (0, 1):
+        dv1, da1 = tsa.tap_attention_bwd_cuda(
+            v2[b:b + 1].contiguous(), attn2[b:b + 1].contiguous(),
+            g2[b:b + 1].contiguous())
+        split &= torch.equal(dv2[b:b + 1], dv1) and torch.equal(
+            da2[b:b + 1], da1)
+    log(f"  tap_bwd two launches bitwise equal {same}; B=2 bitwise equal to "
+        f"two B=1 calls {split}")
+    if not (same and split):
+        raise RuntimeError("tap_bwd kernel is not deterministic per sample")
+    del v2, attn2, g2, dv2, da2, dv1, da1
     k, p = in_turns(torch, lambda: tsa.tap_attention_bwd_cuda(v, attn, g),
                     lambda: tsa.tap_attention_bwd_plain(v, attn, g), 10)
     nb = nbytes(v, attn, g, dvk, dak)
@@ -1133,7 +1198,9 @@ def phase_dcn_kernels(torch, results):
     gen = torch.Generator(device=dev).manual_seed(5)
     B = 6
     per_req = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    worst = 0.0
+    conv = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "pair_ms": 0.0,
+            "matmul_ms": 0.0, "bytes_ms": 0.0}
+    worst = conv_worst = 0.0
     for name, h, w, C, stride, count in DCN_SHAPES:
         ho, wo = dc.out_size(h, w, stride)
         x32 = torch.randn(B, h, w, C, generator=gen, device=dev)
@@ -1185,13 +1252,121 @@ def phase_dcn_kernels(torch, results):
                 f"{cg}, CPU {cc}")
             if cg != cc:
                 raise RuntimeError("dcn certificate differs card vs CPU")
-        del x32, off, mask
-    log(f"  dcn per request (26 launches, bf16): kernel "
+        x = x32.to(torch.bfloat16)
+        del x32
+        conv_worst = max(conv_worst, dcn_conv_checks(
+            torch, dc, name, x, off, mask, stride, count, gen, conv))
+        del x, off, mask
+    log(f"  dcn sampling per request (26 launches, bf16): kernel "
         f"{per_req['ms']:.4f} ms, plain {per_req['plain_ms']:.4f} ms, bound "
         f"{per_req['bound_ms']:.4f} ms (bytes); kernel at "
         f"{per_req['bound_ms'] / per_req['ms']:.1%} of it")
+    log(f"  fused dcn per request (26 launches, bf16): kernel "
+        f"{conv['ms']:.4f} ms against sampling kernel + torch.matmul "
+        f"{conv['pair_ms']:.4f} ms and torch.matmul of the same columns "
+        f"alone {conv['matmul_ms']:.4f} ms; plain {conv['plain_ms']:.4f} "
+        f"ms; bound {conv['bound_ms']:.4f} ms (operations (tensor cores); "
+        f"bytes {conv['bytes_ms']:.4f}), kernel at "
+        f"{conv['bound_ms'] / conv['ms']:.1%} of it; card {nvidia_smi()}")
     results["dcn"] = {"max_abs_err": worst, **per_req, "bound_by": "bytes",
                       "library_ms": None}
+    results["dcn_conv"] = {
+        "max_abs_err": conv_worst, "ms": conv["ms"],
+        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+        "bound_by": "operations (tensor cores)", "library_ms": None,
+        "pair_ms": conv["pair_ms"], "matmul_ms": conv["matmul_ms"]}
+
+
+def dcn_conv_checks(torch, dc, name, x, off, mask, stride, count, gen,
+                    totals):
+    """The fused DCN kernel on one DCN shape (bf16 x, a random (9C, C)
+    weight): against `deform_conv_plain` on the card within DCN_CONV_RTOL
+    of |y| plus DCN_CONV_ATOL x sum_k |cols W|; the window certificate at
+    DCN_RADIUS (stride 1) equal to `window_overflow` card and CPU; two
+    launches bitwise equal, and B = 6 bitwise equal to six B = 1 calls.
+    Then timed in turns against the sampling kernel + torch.matmul and
+    against the torch.matmul of the same columns alone; per-request sums
+    (``count`` layers of this shape) added to ``totals``.  Returns
+    max|kernel - plain|."""
+    from occnet_tpu_torch.ops.dcn_window import window_overflow
+    B, h, w, C = x.shape
+    ho, wo = off.shape[1:3]
+    wmat = (torch.randn(9 * C, C, generator=gen, device=x.device)
+            / (9 * C) ** 0.5).to(torch.bfloat16)
+    radius = DCN_RADIUS if stride == 1 else None
+    y, cnt = dc.deform_conv_cuda(x, off, mask, wmat, stride, radius)
+    y2, cnt2 = dc.deform_conv_cuda(x, off, mask, wmat, stride, radius)
+    want, wcnt = dc.deform_conv_plain(x, off, mask, wmat, stride, radius)
+    cols = dc.deform_sample_cuda(x, off, mask, stride)
+    mag = torch.matmul(cols.float().abs(), wmat.float().abs()).view(
+        B, ho, wo, C)
+    yf, wf = y.float(), want.float()
+    diff = (yf - wf).abs()
+    bad = int((diff > DCN_CONV_RTOL * torch.maximum(yf.abs(), wf.abs())
+               + DCN_CONV_ATOL * mag).sum())
+    err = diff.max().item()
+    fin = torch.isfinite(yf).all().item()
+    same = torch.equal(y, y2) and (cnt is None or torch.equal(cnt, cnt2))
+    ys, cs = [], 0
+    for b in range(B):
+        yb, cb = dc.deform_conv_cuda(x[b:b + 1].contiguous(),
+                                     off[b:b + 1].contiguous(),
+                                     mask[b:b + 1].contiguous(), wmat, stride,
+                                     radius)
+        ys.append(yb)
+        cs += 0 if cb is None else int(cb)
+    split = torch.equal(torch.cat(ys), y)
+    counts = None
+    if radius is not None:
+        counts = (int(cnt), int(wcnt), int(window_overflow(
+            off.cpu(), ho, wo, radius)), cs)
+        split &= cs == counts[0]
+    log(f"  fused dcn {name} y {tuple(y.shape)} bf16: max|kernel-plain| = "
+        f"{err:.3e} ({bad} elements beyond {DCN_CONV_RTOL:.3g} |y| + "
+        f"{DCN_CONV_ATOL:.3g} sum|cols W|), finite {fin}; certificate at "
+        f"R={DCN_RADIUS} (kernel, card, CPU, six B=1 calls) {counts}; two "
+        f"launches bitwise equal {same}; B=6 bitwise equal to six B=1 calls "
+        f"{split}")
+    if bad or not fin:
+        raise RuntimeError(f"fused dcn kernel disagrees with plain ({name})")
+    if counts is not None and len(set(counts)) != 1:
+        raise RuntimeError(f"fused dcn certificate disagrees ({name})")
+    if not (same and split):
+        raise RuntimeError(f"fused dcn kernel is not deterministic ({name})")
+
+    def pair():
+        torch.matmul(dc.deform_sample_cuda(x, off, mask, stride), wmat)
+
+    slot = None if radius is None else torch.zeros(
+        1, dtype=torch.int32, device=x.device)
+
+    def fused():
+        dc.deform_conv_cuda(x, off, mask, wmat, stride, radius, slot)
+
+    def matmul():
+        torch.matmul(cols, wmat)
+
+    p1 = cuda_ms(torch, pair, 5)
+    k1 = cuda_ms(torch, fused, 5)
+    m1 = cuda_ms(torch, matmul, 5)
+    m2 = cuda_ms(torch, matmul, 5)
+    k2 = cuda_ms(torch, fused, 5)
+    p2 = cuda_ms(torch, pair, 5)
+    pl = cuda_ms(torch, lambda: dc.deform_conv_plain(
+        x, off, mask, wmat, stride), 1)
+    k, pr, mm = (k1 + k2) / 2, (p1 + p2) / 2, (m1 + m2) / 2
+    flops = 2.0 * cols.shape[0] * cols.shape[1] * cols.shape[2] * C
+    b_ms, by = least_time(nbytes(x, off, mask, wmat, y), 0.0, flops)
+    bytes_ms = least_time(nbytes(x, off, mask, wmat, y), 0.0)[0]
+    log(f"    times ms: pair {p1:.4f}, fused {k1:.4f}, matmul {m1:.4f}, "
+        f"matmul {m2:.4f}, fused {k2:.4f}, pair {p2:.4f}; plain {pl:.4f}; "
+        f"{flops / 1e9:.2f} GFLOP, bound {b_ms:.4f} ms ({by}), fused at "
+        f"{b_ms / k:.1%} of it ({flops / k / 1e9:.1f} TFLOP/s)")
+    for key, t in (("ms", k), ("pair_ms", pr), ("matmul_ms", mm),
+                   ("plain_ms", pl), ("bound_ms", b_ms),
+                   ("bytes_ms", bytes_ms)):
+        totals[key] += t * count
+    return err
 
 
 def dcn_cfg(name, tiny=False, fp32=False):
@@ -1271,8 +1446,11 @@ def dcn_radii(torch, pred, imgs, e2i):
 
 
 def phase_dcn_parity(torch):
-    from occnet_tpu_torch.ops.deform_conv import DEFORM
+    """Returns the sampling kernel's launches over the two card requests
+    (its main path since the bf16 layers run the fused kernel)."""
+    from occnet_tpu_torch.ops.deform_conv import DEFORM, DEFORM_CONV
     from occnet_tpu_torch.serve import Predictor
+    total = 0
     for name in ("turbo_r101_dcn_occ", "r101_dcn_occ"):
         cfg = dcn_cfg(name, tiny=True, fp32=True)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -1285,9 +1463,10 @@ def phase_dcn_parity(torch):
         sd = dcn_weights(torch, cfg, "cpu", imgs, e2i, seed=3,
                          randomize=True)
         pg, pc = Predictor(cfg, sd, "cuda"), Predictor(cfg, sd, "cpu")
-        DEFORM.launches = 0
+        DEFORM.launches = DEFORM_CONV.launches = 0
         _, _, lg = pg(imgs, e2i, with_logits=True)
-        launches = DEFORM.launches
+        launches, fused = DEFORM.launches, DEFORM_CONV.launches
+        total += launches
         _, _, lc = pc(imgs, e2i, with_logits=True)
         lg = lg.float().cpu()
         err = (lg - lc).abs().max().item()
@@ -1299,20 +1478,50 @@ def phase_dcn_parity(torch):
             f" dcn_window_overflow card {pg.dcn_window_overflow} cpu "
             f"{pc.dcn_window_overflow}; sca_topk_overflow card "
             f"{pg.sca_topk_overflow} cpu {pc.sca_topk_overflow}; "
-            f"deform_sample launches on the card {launches}")
+            f"deform_sample / deform_conv launches on the card {launches} /"
+            f" {fused}")
         if not (err <= LOGIT_ATOL and agree >= 0.99
                 and torch.isfinite(lg).all().item()
                 and pg.dcn_window_overflow == pc.dcn_window_overflow == 0
                 and pg.sca_topk_overflow == pc.sca_topk_overflow
-                and launches == 26):
+                and launches == 26 and fused == 0):
             raise RuntimeError(f"card and CPU disagree on tiny {name}")
+    return total
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def plain_route(x, offset, mask, wmat, stride=1, radius=None, count=None):
+    """A DCN layer as `deform_conv_plain` on the card (the fp32 product of
+    the same columns, rounded once): the reference that bounds how far two
+    valid bf16 routes drift apart through the trunk."""
+    from occnet_tpu_torch.ops import deform_conv as dc
+    y, over = dc.deform_conv_plain(x, offset, mask, wmat, stride, radius)
+    return y, dc._added(over, count)
+
+
+def argmax_agreement(torch, a, b, where=None):
+    """Share of voxels (of ``where``) whose class argmax agrees."""
+    same = a.float().argmax(-1) == b.float().argmax(-1)
+    return (same if where is None else same[where]).float().mean().item()
 
 
 def dcn_split(torch, pred, imgs, e2i):
     """One request with CUDA events at the trunk's bounds, each DCN layer's
-    bounds, and around its sampling kernel and certificate: returns ms of
-    (request, trunk, DCN offset conv, DCN sampling, DCN matmul, DCN
-    certificate)."""
+    bounds, and around its kernels and certificate: returns ms of
+    (request, trunk, {offset conv, fused DCN, sampling, matmul,
+    certificate}).  The fused kernel counts the certificate itself, so
+    there "certificate" is only the gap from its end to the layer's; on the
+    two-step route it is `window_overflow` and the count's add."""
     from occnet_tpu_torch.ops import deform_conv as dc
     marks = []
 
@@ -1329,9 +1538,6 @@ def dcn_split(torch, pred, imgs, e2i):
             return out
         return go
 
-    saved = dc.deform_sample, dc.window_overflow
-    dc.deform_sample = wrap(dc.deform_sample, "sample")
-    dc.window_overflow = wrap(dc.window_overflow, "cert")
     hooks = [pred.model.backbone.register_forward_pre_hook(
         lambda *_: mark("trunk>")),
         pred.model.backbone.register_forward_hook(lambda *_: mark("trunk<"))]
@@ -1341,20 +1547,28 @@ def dcn_split(torch, pred, imgs, e2i):
                 lambda *_: mark("dcn>")))
             hooks.append(mod.register_forward_hook(lambda *_: mark("dcn<")))
     try:
-        torch.cuda.synchronize()
-        mark("request>")
-        pred(imgs, e2i)
-        mark("request<")
-        torch.cuda.synchronize()
+        with patched(dc, "deform_conv_cuda", wrap(dc.deform_conv_cuda,
+                                                  "conv")), \
+                patched(dc, "deform_sample_cuda",
+                        wrap(dc.deform_sample_cuda, "sample")), \
+                patched(dc, "window_overflow", wrap(dc.window_overflow,
+                                                    "cert")):
+            torch.cuda.synchronize()
+            mark("request>")
+            pred(imgs, e2i)
+            mark("request<")
+            torch.cuda.synchronize()
     finally:
-        dc.deform_sample, dc.window_overflow = saved
         for h in hooks:
             h.remove()
-    t = {"offset conv": 0.0, "sampling": 0.0, "matmul": 0.0,
-         "certificate": 0.0}
-    key = {("dcn>", "sample>"): "offset conv", ("sample>", "sample<"):
-           "sampling", ("sample<", "cert>"): "matmul", ("sample<", "dcn<"):
-           "matmul", ("cert>", "cert<"): "certificate"}
+    t = {"offset conv": 0.0, "fused DCN": 0.0, "sampling": 0.0,
+         "matmul": 0.0, "certificate": 0.0}
+    key = {("dcn>", "conv>"): "offset conv", ("dcn>", "sample>"):
+           "offset conv", ("conv>", "conv<"): "fused DCN",
+           ("sample>", "sample<"): "sampling", ("sample<", "cert>"):
+           "matmul", ("sample<", "dcn<"): "matmul", ("cert>", "cert<"):
+           "certificate", ("cert<", "dcn<"): "certificate",
+           ("conv<", "dcn<"): "certificate"}
     for (a, ea), (b, eb) in zip(marks, marks[1:]):
         if (a, b) in key:
             t[key[(a, b)]] += ea.elapsed_time(eb)
@@ -1363,8 +1577,20 @@ def dcn_split(torch, pred, imgs, e2i):
             ev["trunk>"].elapsed_time(ev["trunk<"]), t)
 
 
+def log_split(label, split):
+    req, trunk, t = split
+    dcn = sum(t.values())
+    log(f"  {label}, one request split by CUDA events: total {req:.3f} ms; "
+        f"trunk {trunk:.3f} ms, of it the 26 DCN layers {dcn:.3f} ms (offset"
+        f" conv {t['offset conv']:.3f}, fused DCN {t['fused DCN']:.3f}, "
+        f"sampling kernel {t['sampling']:.3f}, matmul {t['matmul']:.3f}, "
+        f"certificate {t['certificate']:.3f}) and the rest of the trunk "
+        f"{trunk - dcn:.3f}; the rest of the request {req - trunk:.3f} ms")
+
+
 def phase_serve_dcn(torch, name, results):
-    from occnet_tpu_torch.ops.deform_conv import DEFORM
+    """Returns the fused DCN kernel's launches over the timed requests."""
+    from occnet_tpu_torch.ops import deform_conv as dc
     from occnet_tpu_torch.ops.lift_cuda import LIFT
     from occnet_tpu_torch.ops.msda import MSDA
     from occnet_tpu_torch.ops.tsa import TAP
@@ -1393,54 +1619,100 @@ def phase_serve_dcn(torch, name, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dense = m.encoder.mode == "dense"
-    kernels = {"dcn": DEFORM, **({"lift": LIFT, "tap": TAP} if dense
-                                 else {"msda": MSDA})}
+    kernels = {"dcn_conv": dc.DEFORM_CONV, "dcn_sample": dc.DEFORM,
+               **({"lift": LIFT, "tap": TAP} if dense else {"msda": MSDA})}
     if dense:
-        want = {"dcn": 26, "lift": m.num_feature_levels,
+        want = {"dcn_conv": 26, "dcn_sample": 0, "lift": m.num_feature_levels,
                 "tap": m.encoder.num_layers}
     else:
         ks = pred.model.head.transformer.encoder.layer0.cross_attn \
             .topk_sizes(m.bev_h * m.bev_w)
-        want = {"dcn": 26, "msda": m.encoder.num_layers * (
-            1 + (len(set(ks)) or 1))}
-    lat, total = [], {k: 0 for k in kernels}
-    for imgs in reqs[1:REQUESTS + 1]:
-        for k in kernels.values():
-            k.launches = 0
-        t = time.perf_counter()
-        occ, flow, logits = pred(imgs, e2i, with_logits=True)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t) * 1e3)
-        launches = {n: k.launches for n, k in kernels.items()}
-        for n in launches:
-            total[n] += launches[n]
-        if launches != want:
-            raise RuntimeError(f"launch counts {launches} != {want}")
-        if tuple(occ.shape) != (1, m.bev_w, m.bev_h, m.pillar_h) or \
-                tuple(flow.shape) != (1, m.bev_w, m.bev_h, m.pillar_h, 2):
-            raise RuntimeError(f"bad output shapes {occ.shape} {flow.shape}")
-        if not (torch.isfinite(logits).all() and torch.isfinite(flow).all()):
-            raise RuntimeError("non-finite logits or flow")
-        certs = (pred.dcn_window_overflow, pred.sca_topk_overflow)
-        if certs != ((0, None) if dense else (None, 0)):
-            raise RuntimeError(f"certificates (dcn, sca) {certs}")
+        want = {"dcn_conv": 26, "dcn_sample": 0, "msda": m.encoder.num_layers
+                * (1 + (len(set(ks)) or 1))}
+    cert_calls = [0]
+    window_overflow = dc.window_overflow
+
+    def counted(*a, **k):
+        cert_calls[0] += 1
+        return window_overflow(*a, **k)
+
+    lat, ev_ms, total = [], [], {k: 0 for k in kernels}
+    with patched(dc, "window_overflow", counted):
+        for imgs in reqs[1:REQUESTS + 1]:
+            for k in kernels.values():
+                k.launches = 0
+            cert_calls[0] = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            occ, flow, logits = pred(imgs, e2i, with_logits=True)
+            end.record()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+            launches = {n: k.launches for n, k in kernels.items()}
+            for n in launches:
+                total[n] += launches[n]
+            if launches != want or cert_calls[0]:
+                raise RuntimeError(f"launch counts {launches} != {want}, or "
+                                   f"{cert_calls[0]} window_overflow calls")
+            if tuple(occ.shape) != (1, m.bev_w, m.bev_h, m.pillar_h) or \
+                    tuple(flow.shape) != (1, m.bev_w, m.bev_h, m.pillar_h,
+                                          2):
+                raise RuntimeError(f"bad output shapes {occ.shape} "
+                                   f"{flow.shape}")
+            if not (torch.isfinite(logits).all()
+                    and torch.isfinite(flow).all()):
+                raise RuntimeError("non-finite logits or flow")
+            certs = (pred.dcn_window_overflow, pred.sca_topk_overflow)
+            if certs != ((0, None) if dense else (None, 0)):
+                raise RuntimeError(f"certificates (dcn, sca) {certs}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  {REQUESTS} requests: latency ms {[round(x, 3) for x in lat]}, "
-        f"mean {sum(lat) / len(lat):.3f}; peak allocated {peak:.3f} GiB; "
-        f"launches per request {want}, in all {total}; "
-        f"dcn_window_overflow {pred.dcn_window_overflow}, sca_topk_overflow "
+    log(f"  {REQUESTS} requests: latency ms (host clock) "
+        f"{[round(x, 3) for x in lat]}, mean {sum(lat) / len(lat):.3f}; "
+        f"CUDA events on the stream from before the upload to after the "
+        f"answer {[round(x, 3) for x in ev_ms]}; peak allocated "
+        f"{peak:.3f} GiB; launches per request {want}, in all {total}; "
+        f"window_overflow calls 0; dcn_window_overflow "
+        f"{pred.dcn_window_overflow}, sca_topk_overflow "
         f"{pred.sca_topk_overflow}; card {nvidia_smi()}")
     log(f"  occ classes used {int(occ.unique().numel())}, logits range "
         f"[{logits.min().item():.3f}, {logits.max().item():.3f}]")
-    req, trunk, t = dcn_split(torch, pred, reqs[-1], e2i)
-    dcn = sum(t.values())
-    log(f"  one request split by CUDA events: total {req:.3f} ms; trunk "
-        f"{trunk:.3f} ms, of it the 26 DCN layers {dcn:.3f} ms (offset conv "
-        f"{t['offset conv']:.3f}, sampling kernel {t['sampling']:.3f}, "
-        f"matmul {t['matmul']:.3f}, certificate {t['certificate']:.3f}) and "
-        f"the rest of the trunk {trunk - dcn:.3f}; the rest of the request "
-        f"{req - trunk:.3f} ms")
-    return total["dcn"]
+    # the last timed request again on the two-step route and on the plain
+    # product (the fp32 matmul of the same columns, rounded once)
+    with patched(dc, "deform_conv", dc.deform_conv_pair):
+        _, _, old = pred(reqs[REQUESTS], e2i, with_logits=True)
+    if pred.dcn_window_overflow not in (None, 0):
+        raise RuntimeError("two-step route: nonzero DCN certificate")
+    with patched(dc, "deform_conv", plain_route):
+        _, _, ref = pred(reqs[REQUESTS], e2i, with_logits=True)
+    err = (logits.float() - old.float()).abs().max().item()
+    agree = argmax_agreement(torch, logits, old)
+    floor = argmax_agreement(torch, old, ref)
+    top2 = old.float().topk(2, -1).values
+    untied = top2[..., 0] > top2[..., 1]
+    agree_untied = argmax_agreement(torch, logits, old, untied)
+    log(f"  the same request with every DCN layer on the two-step route "
+        f"(sampling kernel + torch.matmul + window_overflow): max|logits "
+        f"fused - two-step| = {err:.3e} (atol {LOGIT_ATOL}); argmax "
+        f"agreement {agree:.5f} of all voxels, {agree_untied:.5f} of the "
+        f"{untied.float().mean().item():.4f} whose two-step top two logits "
+        f"are not tied in bf16 (ARGMAX_AGREE); the two-step route against "
+        f"the plain product, the bf16 noise floor: {floor:.5f} of all "
+        f"voxels")
+    if not (err <= LOGIT_ATOL and agree_untied >= ARGMAX_AGREE
+            and agree >= floor - ARGMAX_FLOOR_SLACK):
+        raise RuntimeError("fused DCN request disagrees with the two-step "
+                           "route")
+    prof = device_profile(torch, lambda: pred(reqs[-1], e2i))
+    log(f"  one more request under torch.profiler: device kernels and "
+        f"copies {prof['kernel_ms']:.3f} ms summed, card busy "
+        f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span")
+    log_split("fused DCN", dcn_split(torch, pred, reqs[-1], e2i))
+    with patched(dc, "deform_conv", dc.deform_conv_pair):
+        log_split("two-step route", dcn_split(torch, pred, reqs[-1], e2i))
+    return total["dcn_conv"]
 
 
 def compare_marches(torch, name, got, want):
@@ -1853,16 +2125,16 @@ def main():
     log("[11 serve exact] base_occ full width, bf16, gather encoder")
     phase_serve_exact(torch, results)
     torch.cuda.empty_cache()
-    log("[12 kernels (dcn)] DCNv2 sampling kernel vs plain at R101-DCN's "
-        "four DCN shapes, bf16 and f32")
+    log("[12 kernels (dcn)] DCNv2 sampling and fused kernels vs plain at "
+        "R101-DCN's four DCN shapes")
     phase_dcn_kernels(torch, results)
     torch.cuda.empty_cache()
     log("[13 dcn parity] tiny R101-DCN, fp32, window DCN, dense and gather "
         "encoders, card vs CPU")
-    phase_dcn_parity(torch)
+    results["dcn"]["launches"] = phase_dcn_parity(torch)
     log("[14 serve turbo_r101_dcn_occ] full width, bf16, window DCN, dense "
         "encoder")
-    results["dcn"]["launches"] = phase_serve_dcn(
+    results["dcn_conv"]["launches"] = phase_serve_dcn(
         torch, "turbo_r101_dcn_occ", results)
     torch.cuda.empty_cache()
     log("[15 serve r101_dcn_occ] full width, bf16, gather DCN, exact "
@@ -1909,6 +2181,10 @@ def main():
              source="occnet_tpu_torch/csrc/deform_conv.cu",
              replaces="occnet_tpu/ops/dcn_window.py:133,174",
              **results["dcn"]),
+        dict(name="dcn_conv", route="cuda",
+             source="occnet_tpu_torch/csrc/deform_conv.cu",
+             replaces="occnet_tpu/ops/dcn_window.py:133,174,342",
+             **results["dcn_conv"]),
         dict(name="lift_pass2", route="cuda",
              source="occnet_tpu_torch/csrc/lift_pass2.cu",
              replaces="occnet_tpu/ops/lift_pallas.py:385",

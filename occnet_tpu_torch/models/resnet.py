@@ -95,7 +95,8 @@ class TrainableBatchNorm(FrozenBatchNorm):
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 with identity / projection shortcut; with
     ``dcn`` the 3x3 is a `ModulatedDeformConv` in ``dcn_mode``.  `forward`
-    returns (output, the DCN layer's window certificate or None)."""
+    returns (output, the DCN layer's window certificate or None); a given
+    ``count`` (1-element int32) is the DCN layer's certificate counter."""
 
     def __init__(self, in_ch: int, mid: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32, norm_eval: bool = True,
@@ -122,13 +123,14 @@ class Bottleneck(nn.Module):
                                           bias=False, dtype=dtype)
             self.downsample_bn = bn(out_ch, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False
+    def forward(self, x: torch.Tensor, train: bool = False,
+                count: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         identity = x
         y = F.relu(self.bn1(self.conv1(x), train))
         overflow = None
         if self.dcn:
-            y, overflow = self.conv2(y)
+            y, overflow = self.conv2(y, count)
         else:
             y = self.conv2(y)
         y = F.relu(self.bn2(y, train))
@@ -168,6 +170,8 @@ class ResNet(nn.Module):
             64, dtype=dtype)
         self.stages: List[List[str]] = []
         dcn_idx = dcn_layer_indices(depth, dcn_stages)
+        # the DCN layers that may carry a window certificate -> counter slot
+        self.window_layers = dict(dcn_idx) if dcn_mode == "window" else {}
         in_ch, mid = 64, 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
             names = []
@@ -195,13 +199,18 @@ class ResNet(nn.Module):
         with self._frozen(-1):
             x = F.relu(self.bn1(self.conv1(x), train))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
-        outs, overflows = [], []
+        # one certificate counter a window-mode DCN layer, zeroed in one
+        # launch and summed in one: the layers add into them on the card
+        counts = (torch.zeros(len(self.window_layers), dtype=torch.int32,
+                              device=x.device) if self.window_layers else None)
+        outs, certified = [], False
         for stage, names in enumerate(self.stages):
             with self._frozen(stage):
                 for name in names:
-                    x, over = getattr(self, name)(x, train)
-                    if over is not None:
-                        overflows.append(over)
+                    j = self.window_layers.get(name)
+                    x, over = getattr(self, name)(
+                        x, train, None if j is None else counts[j:j + 1])
+                    certified |= over is not None
             if stage in self.out_indices:
                 outs.append(x)
-        return outs, (sum(overflows) if overflows else None)
+        return outs, (counts.sum() if certified else None)

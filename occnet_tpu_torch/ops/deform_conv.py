@@ -1,7 +1,9 @@
-"""Modulated deformable convolution (DCNv2): the sampling kernel
-(`csrc/deform_conv.cu`), its plain PyTorch version, and the layer.  The port
-of `occnet_tpu/ops/deform_conv.py` and of the Pallas window kernels of
-`occnet_tpu/ops/dcn_window.py` (`_window_kernel_dymajor`, `_window_kernel`).
+"""Modulated deformable convolution (DCNv2): the kernels of
+`csrc/deform_conv.cu` (the fused sampling + product, and the sampling
+alone), their plain PyTorch versions, and the layer.  The port of
+`occnet_tpu/ops/deform_conv.py` and of the Pallas window kernels of
+`occnet_tpu/ops/dcn_window.py` (`_window_kernel_dymajor`, `_window_kernel`)
+with the einsum that follows them.
 
 Contract of the sampling (`deform_sample_*`), 3x3 taps k = ky * 3 + kx,
 padding 1, dilation 1, stride 1 or 2:
@@ -31,9 +33,21 @@ to fp32 rounding (that form rounds each position through a normalised
 coordinate, and in bf16 rounds each corner product and multiplies the mask
 after sampling).
 
-`deform_sample` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors, never falling back from one to the other.  The
-CUDA path is forward only: it raises on inputs that require grad (the DCN
+The layer's contraction (`deform_conv_*`): with the weight as a (9 * C,
+Cout) matrix, tap-major rows (row k * C + c),
+
+    y[b, oy, ox, n] = sum_j cols[b, oy * wo + ox, j] * wmat[j, n]
+
+summed in fp32 and rounded once to x's dtype, y (B, ho, wo, Cout) NHWC.
+For bf16 CUDA tensors `deform_conv` is ONE kernel (`occ_deform_conv`): the
+columns stay in shared memory, the tensor cores sum in fp32 (in another
+order than an fp32 matmul), and the window certificate of the layer is
+counted in the same kernel.  For fp32 CUDA tensors it is the sampling
+kernel followed by `torch.matmul`, and for CPU tensors the plain version.
+
+Every wrapper launches its kernel for CUDA tensors and the plain version
+runs for CPU tensors, never falling back from one to the other.  The CUDA
+path is forward only: it raises on inputs that require grad (the DCN
 backward comes with R101-DCN training).
 """
 
@@ -50,6 +64,10 @@ from occnet_tpu_torch.ops.dcn_window import window_overflow, window_supported
 
 DEFORM = Kernel("occ_deform_sample", [P, P, P, P, I32, I32, I32, I32, I32,
                                       I32, I32, I32, P])
+DEFORM_CONV = Kernel("occ_deform_conv", [P, P, P, P, P, P, I32, I32, I32,
+                                         I32, I32, I32, I32, I32, I32, P])
+CONV_K_STEP = 32            # input channels of one K step of occ_deform_conv
+CONV_N_TILE = 256           # output channels of one of its blocks
 
 TAPS = 9
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -140,15 +158,128 @@ def deform_sample_cuda(x: torch.Tensor, offset: torch.Tensor,
     return cols
 
 
-def deform_sample(x: torch.Tensor, offset: torch.Tensor,
-                  mask: Optional[torch.Tensor], stride: int = 1,
-                  dilation: int = 1) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+def deform_conv_plain(x: torch.Tensor, offset: torch.Tensor,
+                      mask: Optional[torch.Tensor], wmat: torch.Tensor,
+                      stride: int = 1, radius: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The contraction above in plain PyTorch: `deform_sample_plain`, an
+    fp32 product rounded once to x's dtype -> (y (B, ho, wo, Cout), the
+    `window_overflow` of the offsets at ``radius``, or None without one)."""
+    B = x.shape[0]
+    ho, wo = _check(x, offset, mask, stride, 1)
+    cols = deform_sample_plain(x, offset, mask, stride)
+    y = torch.matmul(cols.float(), wmat.float()).to(x.dtype)
+    count = None if radius is None else window_overflow(offset, ho, wo,
+                                                        radius)
+    return y.view(B, ho, wo, -1), count
+
+
+def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
+                     mask: Optional[torch.Tensor], wmat: torch.Tensor,
+                     stride: int = 1, radius: Optional[int] = None,
+                     count: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`deform_conv_plain` for bf16 as one launch of `occ_deform_conv`
+    (forward only).  With ``radius`` the layer's window certificate is
+    ADDED to ``count`` (a 1-element int32 tensor on x's device; a zeroed
+    one is made when None) and returned; without, None is returned.  x must
+    be a contiguous NHWC tensor (the trunk's channels-last NCHW activations
+    permuted): the wrapper raises rather than copy."""
+    B, h, w, C = x.shape
+    ho, wo = _check(x, offset, mask, stride, 1)
+    ins = [x, offset, wmat] + ([] if mask is None else [mask])
+    if any(t.requires_grad for t in ins):
+        raise ValueError("deform_conv kernel: forward only, inputs must not "
+                         "require grad (R101-DCN training is not ported "
+                         "yet)")
+    if x.dtype != torch.bfloat16 or wmat.dtype != torch.bfloat16 \
+            or offset.dtype != torch.float32 \
+            or (mask is not None and mask.dtype != torch.float32):
+        raise ValueError(f"deform_conv kernel: bf16 x and wmat, fp32 "
+                         f"offset/mask, got {[t.dtype for t in ins]}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("deform_conv kernel: inputs must be contiguous "
+                         "(x NHWC: a channels-last NCHW tensor permuted)")
+    if wmat.ndim != 2 or wmat.shape[0] != TAPS * C:
+        raise ValueError(f"deform_conv kernel: wmat {tuple(wmat.shape)} is "
+                         f"not (9 * {C}, Cout)")
+    N = wmat.shape[1]
+    if C % CONV_K_STEP or N % CONV_N_TILE:
+        raise ValueError(f"deform_conv kernel: C = {C} must be a multiple "
+                         f"of {CONV_K_STEP} and Cout = {N} of {CONV_N_TILE} "
+                         f"(its K step and N tile)")
+    if not x.is_cuda:
+        raise ValueError(f"deform_conv kernel: tensors must be on a CUDA "
+                         f"device, got {x.device}")
+    if any(t.device != x.device for t in ins):
+        raise ValueError("deform_conv kernel: x, offset, mask and wmat must "
+                         "share one device")
+    if x.data_ptr() % 16 or wmat.data_ptr() % 16:
+        raise ValueError("deform_conv kernel: x and wmat must be 16-byte "
+                         "aligned")
+    if radius is not None:
+        if count is None:
+            count = torch.zeros(1, dtype=torch.int32, device=x.device)
+        elif count.dtype != torch.int32 or count.device != x.device \
+                or count.numel() != 1:
+            raise ValueError("deform_conv kernel: count must be one int32 "
+                             "element on x's device")
+    else:
+        count = None
+    y = torch.empty(B, ho, wo, N, dtype=x.dtype, device=x.device)
+    DEFORM_CONV(x.data_ptr(), offset.data_ptr(),
+                None if mask is None else mask.data_ptr(), wmat.data_ptr(),
+                y.data_ptr(), None if count is None else count.data_ptr(),
+                B, h, w, C, ho, wo, N, stride,
+                -1 if radius is None else radius,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    return y, count
+
+
+def deform_conv_pair(x: torch.Tensor, offset: torch.Tensor,
+                     mask: Optional[torch.Tensor], wmat: torch.Tensor,
+                     stride: int = 1, radius: Optional[int] = None,
+                     count: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer on the card in three steps: the sampling kernel into
+    columns, `torch.matmul` with ``wmat``, then `window_overflow` at
+    ``radius`` (the fp32 path; `deform_conv` for the arguments)."""
+    B = x.shape[0]
+    ho, wo = _check(x, offset, mask, stride, 1)
+    cols = deform_sample_cuda(x, offset, mask, stride)
+    y = torch.matmul(cols, wmat).view(B, ho, wo, -1)
+    over = None if radius is None else window_overflow(offset, ho, wo,
+                                                       radius)
+    return y, _added(over, count)
+
+
+def deform_conv(x: torch.Tensor, offset: torch.Tensor,
+                mask: Optional[torch.Tensor], wmat: torch.Tensor,
+                stride: int = 1, radius: Optional[int] = None,
+                count: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's sampling and product -> (y (B, ho, wo, Cout), the window
+    certificate at ``radius`` or None): `occ_deform_conv` for bf16 CUDA
+    tensors, `deform_conv_pair` for fp32 CUDA tensors, the plain version
+    for CPU tensors.  A given ``count`` (1-element int32) has the
+    certificate added to it and is returned in its place."""
     if x.is_cuda:
-        return deform_sample_cuda(x, offset, mask, stride, dilation)
+        if x.dtype == torch.bfloat16:
+            return deform_conv_cuda(x, offset, mask, wmat, stride, radius,
+                                    count)
+        return deform_conv_pair(x, offset, mask, wmat, stride, radius, count)
     if x.device.type == "cpu":
-        return deform_sample_plain(x, offset, mask, stride, dilation)
-    raise ValueError(f"deform_sample: no implementation for {x.device}")
+        y, over = deform_conv_plain(x, offset, mask, wmat, stride, radius)
+        return y, _added(over, count)
+    raise ValueError(f"deform_conv: no implementation for {x.device}")
+
+
+def _added(over: Optional[torch.Tensor], count: Optional[torch.Tensor]
+           ) -> Optional[torch.Tensor]:
+    """``over`` added into ``count`` (returned) when both are given."""
+    if over is None or count is None:
+        return over
+    return count.add_(over.to(count.dtype))
 
 
 def _check(x, offset, mask, stride, dilation) -> Tuple[int, int]:
@@ -174,15 +305,15 @@ class ModulatedDeformConv(nn.Module):
     in the compute dtype, predicts 2 * 9 offsets (channels 2k, 2k + 1 =
     dy, dx of tap k) and 9 mask logits (channel 18 + k); the offsets are
     then cast to fp32 and the mask is the fp32 sigmoid of its logits, as the
-    JAX layer rounds them.  The taps are sampled into columns by
-    `deform_sample` and contracted with `weight` (Cout, Cin, 3, 3) by one
-    `torch.matmul` (the JAX package's XLA einsum, outside any kernel).
+    JAX layer rounds them.  The taps are sampled and contracted with
+    `weight` (Cout, Cin, 3, 3) by `deform_conv` (one kernel for bf16 on the
+    card).
 
     Input and output are NCHW in channels-last memory (the trunk's layout).
     ``mode`` "window" marks the JAX layers that run the Pallas window kernel
     (`window_supported`): for those `forward` also returns their
     `window_overflow` at ``window_radius``, else None.  The sampling itself
-    is the same exact kernel in both modes."""
+    is exact in both modes."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  mode: str = "gather", window_radius: int = 3,
@@ -212,19 +343,19 @@ class ModulatedDeformConv(nn.Module):
         mask = torch.sigmoid(co[..., 2 * TAPS:].float()).contiguous()
         return off, mask
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, count: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x (B, Cin, h, w) -> (y (B, Cout, ho, wo) in channels-last memory,
-        the window certificate or None)."""
+        the window certificate or None).  A given ``count`` (1-element
+        int32 on x's device) has the certificate added to it and is returned
+        as the certificate, so that a trunk zeroes one counter a layer in a
+        single launch."""
         dt = self.compute_dtype
-        B, cin, h, w = x.shape
+        cin, w = x.shape[1], x.shape[3]
         off, mask = self.offset_and_mask(x)
-        cols = deform_sample(x.to(dt).permute(0, 2, 3, 1), off, mask,
-                             self.stride)             # (B, ho*wo, 9*Cin)
         wmat = self.weight.to(dt).permute(2, 3, 1, 0).reshape(TAPS * cin, -1)
-        ho, wo = off.shape[1:3]
-        y = torch.matmul(cols, wmat).view(B, ho, wo, -1).permute(0, 3, 1, 2)
-        overflow = None
-        if self.mode == "window" and window_supported(w, 3, self.stride, 1):
-            overflow = window_overflow(off, ho, wo, self.window_radius)
-        return y, overflow
+        radius = (self.window_radius if self.mode == "window"
+                  and window_supported(w, 3, self.stride, 1) else None)
+        y, overflow = deform_conv(x.to(dt).permute(0, 2, 3, 1), off, mask,
+                                  wmat, self.stride, radius, count)
+        return y.permute(0, 3, 1, 2), overflow

@@ -99,8 +99,8 @@ def tap_attention_bwd_plain(vgrid: torch.Tensor, attn: torch.Tensor,
 def tap_attention_bwd_cuda(vgrid: torch.Tensor, attn: torch.Tensor,
                            g: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`tap_attention_bwd_plain` as one call of the CUDA library (two
-    kernels, dv and dattn, on the current stream; one launch count)."""
+    """`tap_attention_bwd_plain` as one launch of the CUDA kernel (dv and
+    dattn together, on the current stream)."""
     B, nq, H, W, C = vgrid.shape
     heads = attn.shape[-1]
     _check_tap_inputs("tap_bwd", vgrid, attn)
@@ -109,10 +109,16 @@ def tap_attention_bwd_cuda(vgrid: torch.Tensor, attn: torch.Tensor,
         raise ValueError(f"tap_bwd kernel: expected a contiguous float32 "
                          f"gradient {(B, H, W, C)}, got {g.dtype} "
                          f"{tuple(g.shape)}")
-    D4 = C // heads // 4
-    if D4 & (D4 - 1) or D4 > 32:
-        raise ValueError(f"tap_bwd kernel: head width {C // heads} must be "
-                         f"4 x a power of two <= 128")
+    D = C // heads
+    row_bytes = nq * len(TSA_TAPS) * heads * vgrid.element_size()
+    if C % 64 or D % 8 or 64 % D or row_bytes % 16 or nq > 2:
+        raise ValueError(f"tap_bwd kernel: C = {C} must be a multiple of "
+                         f"64, the head width {D} a multiple of 8 dividing "
+                         f"64, an attn row ({nq} x 9 x {heads} values) a "
+                         f"multiple of 16 bytes, and at most 2 queue slots")
+    if attn.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("tap_bwd kernel: attn and g must be 16-byte "
+                         "aligned")
     dv = torch.empty_like(vgrid)
     dattn = torch.empty_like(attn)
     TAP_BWD(vgrid.data_ptr(), attn.data_ptr(), g.data_ptr(), dv.data_ptr(),

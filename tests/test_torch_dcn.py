@@ -61,11 +61,10 @@ def rand_case(seed, B=2, h=7, w=9, C=4, off_scale=1.5, ho=None, wo=None):
 
 
 def plain(x, offset, mask, stride=1, dtype=torch.float32):
-    """The port's sampling (plain version, through `deform_sample`) ->
-    numpy (B, ho * wo, 9, C)."""
+    """The port's sampling (plain version) -> numpy (B, ho * wo, 9, C)."""
     B, ho, wo, _ = offset.shape
     launches = port.DEFORM.launches
-    got = port.deform_sample(
+    got = port.deform_sample_plain(
         torch.from_numpy(x).to(dtype),
         torch.from_numpy(offset).reshape(B, ho, wo, 9, 2),
         None if mask is None else torch.from_numpy(mask), stride)
@@ -523,5 +522,168 @@ def test_cuda_wrapper_refusals():
     with pytest.raises(ValueError, match="mask"):
         port.deform_sample_cuda(xt, ot, mt[..., :4])
     assert port.DEFORM.launches == launches
+
+
+def conv_case(seed, B=2, h=7, w=9, C=8, cout=6, off_scale=1.5, ho=None,
+              wo=None):
+    """`rand_case` plus a weight (3, 3, C, cout): the JAX layout, whose
+    reshape to (9 * C, cout) is the port's tap-major `wmat`."""
+    x, offset, mask = rand_case(seed, B, h, w, C, off_scale, ho, wo)
+    weight = np.random.RandomState(seed + 100).randn(3, 3, C, cout).astype(
+        np.float32) / np.sqrt(9 * C)
+    return x, offset, mask, weight
+
+
+def port_conv(x, offset, mask, weight, stride=1, radius=None,
+              dtype=torch.float32):
+    """`deform_conv_plain` -> (y numpy fp32 (B, ho, wo, cout), count)."""
+    B, ho, wo, _ = offset.shape
+    launches = port.DEFORM_CONV.launches, port.DEFORM.launches
+    y, count = port.deform_conv_plain(
+        torch.from_numpy(x).to(dtype),
+        torch.from_numpy(offset).reshape(B, ho, wo, 9, 2),
+        None if mask is None else torch.from_numpy(mask),
+        torch.from_numpy(weight).reshape(-1, weight.shape[-1]).to(dtype),
+        stride, radius)
+    assert (port.DEFORM_CONV.launches, port.DEFORM.launches) == launches
+    assert y.dtype == dtype
+    return y.float().numpy(), count
+
+
+@pytest.mark.parametrize("radius,use_mask,dtype", [
+    (0, True, "float32"), (1, False, "float32"), (1, True, "bfloat16"),
+    (0, False, "bfloat16")])
+def test_conv_plain_matches_pallas_window_conv(radius, use_mask, dtype):
+    """`deform_conv_plain` against `modulated_deform_conv_window` (#11
+    through `_sampled_window` in interpret mode, then the einsum), offsets
+    inside the window: y and the certificate (0 on both sides).  fp32 to
+    2e-4; bf16 within one bf16 step of max|y| (the window kernel sums its
+    slots in another order before its one rounding of the samples)."""
+    x, offset, mask, weight = conv_case(20 + radius, C=16)
+    offset = np.clip(offset, -radius, radius + 0.99)
+    mask = mask if use_mask else None
+    jdt = jnp.dtype(dtype)
+    want, over = jax.jit(jdw.modulated_deform_conv_window,
+                         static_argnames="radius")(
+        jnp.asarray(x).astype(jdt), jnp.asarray(offset),
+        None if mask is None else jnp.asarray(mask),
+        jnp.asarray(weight).astype(jdt), radius=radius)
+    want = np.asarray(want, np.float32)
+    xd = np.array(jnp.asarray(x).astype(jdt), np.float32)
+    wd = np.array(jnp.asarray(weight).astype(jdt), np.float32)
+    got, count = port_conv(xd, offset, mask, wd, radius=radius,
+                           dtype=getattr(torch, dtype))
+    assert got.shape == want.shape == (2, 7, 9, 6)
+    assert count.dtype == torch.int64 and int(count) == int(over) == 0
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    else:
+        step = BF16_STEP * np.abs(want).max()
+        assert np.abs(got - want).max() <= step, np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("seed,scale,radius", [(21, 2.0, 0), (22, 4.0, 1)])
+def test_conv_plain_count_matches_pallas_window_conv(seed, scale, radius):
+    """Offsets past the window and off the image: the count of
+    `deform_conv_plain` equals the overflow of `modulated_deform_conv_window`
+    (nonzero; the outputs then differ by design: JAX zeroes those
+    samples)."""
+    x, offset, mask, weight = conv_case(seed, C=8, off_scale=scale)
+    _, over = jax.jit(jdw.modulated_deform_conv_window,
+                      static_argnames="radius")(
+        jnp.asarray(x), jnp.asarray(offset), jnp.asarray(mask),
+        jnp.asarray(weight), radius=radius)
+    _, count = port_conv(x, offset, mask, weight, radius=radius)
+    assert int(count) == int(over) > 0
+
+
+@pytest.mark.parametrize("h,w,use_mask,dtype", [
+    (7, 9, True, "float32"), (8, 6, False, "float32"),
+    (7, 9, True, "bfloat16")])
+def test_conv_plain_stride2_matches_gather_form(h, w, use_mask, dtype):
+    """Stride 2 against the XLA gather form `modulated_deform_conv` (no
+    certificate on either side).  fp32 to 2e-4; bf16 within one bf16 step
+    of max|y| (the gather form rounds each corner product to bf16)."""
+    ho, wo = -(-h // 2), -(-w // 2)
+    x, offset, mask, weight = conv_case(30 + h, h=h, w=w, ho=ho, wo=wo)
+    mask = mask if use_mask else None
+    jdt = jnp.dtype(dtype)
+    want = np.asarray(jax.jit(lambda *a: modulated_deform_conv(
+        *a, stride=2))(jnp.asarray(x).astype(jdt), jnp.asarray(offset),
+                       None if mask is None else jnp.asarray(mask),
+                       jnp.asarray(weight).astype(jdt)), np.float32)
+    xd = np.array(jnp.asarray(x).astype(jdt), np.float32)
+    wd = np.array(jnp.asarray(weight).astype(jdt), np.float32)
+    got, count = port_conv(xd, offset, mask, wd, stride=2,
+                           dtype=getattr(torch, dtype))
+    assert count is None and got.shape == want.shape == (2, ho, wo, 6)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    else:
+        step = BF16_STEP * np.abs(want).max()
+        assert np.abs(got - want).max() <= step, np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_on_cpu_is_deform_conv_plain(dtype):
+    """`ModulatedDeformConv` (window mode, R = 1) on the CPU returns
+    `deform_conv_plain`'s y and count bitwise, on offsets whose count is
+    nonzero; a counter handed in gets the count added and comes back as
+    the certificate."""
+    dt = getattr(torch, dtype)
+    torch.manual_seed(3)
+    mod = port.ModulatedDeformConv(16, 8, 1, "window", 1, dt)
+    with torch.no_grad():
+        mod.conv_offset.weight.normal_(0.0, 0.5)
+    x = torch.randn(2, 16, 7, 9).to(dt).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        y, over = mod(x)
+        off, mask = mod.offset_and_mask(x)
+        wmat = mod.weight.to(dt).permute(2, 3, 1, 0).reshape(9 * 16, 8)
+        want, count = port.deform_conv_plain(x.permute(0, 2, 3, 1), off,
+                                             mask, wmat, 1, 1)
+        slot = torch.full((1,), 5, dtype=torch.int32)
+        y2, over2 = mod(x, slot)
+    assert y.dtype == dt and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y.permute(0, 2, 3, 1), want) and torch.equal(y2, y)
+    assert int(over) == int(count) > 0
+    assert over2 is slot and int(slot) == 5 + int(count)
+
+
+def test_fused_cuda_wrapper_refusals():
+    """`deform_conv_cuda` (the fused kernel's wrapper) refuses what the
+    kernel does not take, with a message, before any build or launch."""
+    x, offset, mask, weight = conv_case(40, C=32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ot = torch.from_numpy(offset).reshape(2, 7, 9, 9, 2)
+    mt = torch.from_numpy(mask)
+    wt = torch.from_numpy(np.random.RandomState(41).randn(9 * 32, 256)).to(
+        torch.bfloat16)
+    launches = port.DEFORM_CONV.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        port.deform_conv_cuda(xt, ot, mt, wt)
+    with pytest.raises(ValueError, match="forward only"):
+        port.deform_conv_cuda(xt.clone().requires_grad_(), ot, mt, wt)
+    with pytest.raises(ValueError, match="forward only"):
+        port.deform_conv_cuda(xt, ot, mt, wt.float().requires_grad_())
+    with pytest.raises(ValueError, match="bf16 x and wmat"):
+        port.deform_conv_cuda(xt.float(), ot, mt, wt)
+    with pytest.raises(ValueError, match="bf16 x and wmat"):
+        port.deform_conv_cuda(xt, ot, mt, wt.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        port.deform_conv_cuda(xt.permute(0, 2, 1, 3).contiguous().permute(
+            0, 2, 1, 3), ot, mt, wt)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        port.deform_conv_cuda(xt[..., :16].contiguous(), ot, mt,
+                              wt[:9 * 16].contiguous())
+    with pytest.raises(ValueError, match="Cout = 128"):
+        port.deform_conv_cuda(xt, ot, mt, wt[:, :128].contiguous())
+    with pytest.raises(ValueError, match=r"not \(9 \* 32, Cout\)"):
+        port.deform_conv_cuda(xt, ot, mt, wt[:8 * 32].contiguous())
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        port.deform_conv_cuda(xt, ot, mt, wt, stride=3)
+    assert port.DEFORM_CONV.launches == launches
     with pytest.raises(ValueError, match="no implementation"):
-        port.deform_sample(xt.to("meta"), ot.to("meta"), mt.to("meta"))
+        port.deform_conv(xt.to("meta"), ot.to("meta"), mt.to("meta"),
+                         wt.to("meta"))
