@@ -81,7 +81,7 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
 }
 
 // 16-byte asynchronous copy global -> shared (bypassing L1), and its group
-// commit / wait.  Both addresses 16-byte aligned.
+// commit / waits.  Both addresses 16-byte aligned.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -92,6 +92,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// all but the most recently committed group
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 }  // namespace occ

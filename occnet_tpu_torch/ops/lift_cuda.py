@@ -92,7 +92,12 @@ def lift_level_plain(feat: torch.Tensor, pos1: torch.Tensor,
 
     feat (B, A, h, w, C); pos1 (B, A, ZR, w + h); pos2 (B, A, ZR, M);
     steep (B, A, ZR) bool; inv_count (B, R * M).  Loops over cameras so the
-    working set stays at a few (B, ZR*M, C) fp32 buffers at full width."""
+    working set stays at a few (B, ZR*M, C) fp32 buffers at full width.
+
+    The sum runs in a fixed order, camera ascending, then dk, then dj, each
+    step ``acc + (w2 * w1) * f`` in separate fp32 roundings, then ``acc *
+    inv_count`` and one rounding on the copy into ``out``; the kernel
+    repeats it, so the two are bitwise equal."""
     B, A, h, w, C = feat.shape
     ZR, M = pos2.shape[2], pos2.shape[3]
     bidx = torch.arange(B, device=feat.device)[:, None]
@@ -108,9 +113,10 @@ def lift_level_plain(feat: torch.Tensor, pos1: torch.Tensor,
 def lift_level_cuda(feat: torch.Tensor, pos1: torch.Tensor,
                     pos2: torch.Tensor, steep: torch.Tensor,
                     inv_count: torch.Tensor, out: torch.Tensor) -> None:
-    """`lift_level_plain` as one launch of the CUDA kernel.  ``out`` may be a
-    strided view (B, ZR, M, C) with contiguous (ZR, M, C) per batch element,
-    e.g. one level of the stacked (B, L, Z, Q, C) lift output."""
+    """`lift_level_plain` as one launch of the CUDA kernel, bitwise equal to
+    it (same fp32 operations in the same order).  ``out`` may be a strided
+    view (B, ZR, M, C) with contiguous (ZR, M, C) per batch element, e.g.
+    one level of the stacked (B, L, Z, Q, C) lift output."""
     B, A, h, w, C = feat.shape
     ZR, M = pos2.shape[2], pos2.shape[3]
     R = inv_count.shape[1] // M
@@ -136,10 +142,11 @@ def lift_level_cuda(feat: torch.Tensor, pos1: torch.Tensor,
             or out[0].stride() != (M * C, C, 1):
         raise ValueError(f"lift kernel: bad output {out.dtype} "
                          f"{tuple(out.shape)} {out.stride()}")
-    if C % 8 or C > 2048 or ZR % R or feat.data_ptr() % 16 \
-            or out.data_ptr() % 16:
-        raise ValueError(f"lift kernel: C={C} must be a multiple of 8 "
-                         f"<= 2048 with 16-byte aligned feat/out")
+    if C % 8 or ZR % R or ZR // R > 256 or feat.data_ptr() % 16 \
+            or out.data_ptr() % 16 or out.stride(0) % 8:
+        raise ValueError(f"lift kernel: C={C} must be a multiple of 8, "
+                         f"at most 256 z-anchors (ZR={ZR}, R={R}), with "
+                         f"16-byte aligned feat/out rows")
     LIFT(feat.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
          steep.data_ptr(), inv_count.data_ptr(), out.data_ptr(),
          int(out.dtype == torch.bfloat16), B, A, h, w, C, ZR, R, M,

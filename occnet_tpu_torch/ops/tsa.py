@@ -64,7 +64,9 @@ def tap_attention_plain(vgrid: torch.Tensor, attn: torch.Tensor
 
 def tap_attention_cuda(vgrid: torch.Tensor, attn: torch.Tensor
                        ) -> torch.Tensor:
-    """`tap_attention_plain` as one launch of the CUDA kernel."""
+    """`tap_attention_plain` as one launch of the CUDA kernel (tiles of BEV
+    cells staged in shared memory with their halo).  Raises ValueError on
+    shapes the tiles cannot take (see `_check_tap_inputs`)."""
     B, nq, H, W, C = vgrid.shape
     heads = attn.shape[-1]
     _check_tap_inputs("tap", vgrid, attn)
@@ -109,16 +111,8 @@ def tap_attention_bwd_cuda(vgrid: torch.Tensor, attn: torch.Tensor,
         raise ValueError(f"tap_bwd kernel: expected a contiguous float32 "
                          f"gradient {(B, H, W, C)}, got {g.dtype} "
                          f"{tuple(g.shape)}")
-    D = C // heads
-    row_bytes = nq * len(TSA_TAPS) * heads * vgrid.element_size()
-    if C % 64 or D % 8 or 64 % D or row_bytes % 16 or nq > 2:
-        raise ValueError(f"tap_bwd kernel: C = {C} must be a multiple of "
-                         f"64, the head width {D} a multiple of 8 dividing "
-                         f"64, an attn row ({nq} x 9 x {heads} values) a "
-                         f"multiple of 16 bytes, and at most 2 queue slots")
-    if attn.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("tap_bwd kernel: attn and g must be 16-byte "
-                         "aligned")
+    if g.data_ptr() % 16:
+        raise ValueError("tap_bwd kernel: g must be 16-byte aligned")
     dv = torch.empty_like(vgrid)
     dattn = torch.empty_like(attn)
     TAP_BWD(vgrid.data_ptr(), attn.data_ptr(), g.data_ptr(), dv.data_ptr(),
@@ -143,9 +137,17 @@ def _check_tap_inputs(name, vgrid, attn):
                          f"{attn.dtype}")
     if not (vgrid.is_contiguous() and attn.is_contiguous()):
         raise ValueError(f"{name} kernel: inputs must be contiguous")
-    if C % heads or (C // heads) % 4 or vgrid.data_ptr() % 16:
-        raise ValueError(f"{name} kernel: head width {C}/{heads} must be a "
-                         f"multiple of 4 with 16-byte aligned vgrid")
+    D = C // heads
+    row_bytes = nq * len(TSA_TAPS) * heads * vgrid.element_size()
+    if C % heads or C % 64 or D % 8 or 64 % D or row_bytes % 16 or nq > 2:
+        raise ValueError(f"{name} kernel: C = {C} must be a multiple of "
+                         f"64, the head width {C}/{heads} a multiple of 8 "
+                         f"dividing 64, an attn row ({nq} x 9 x {heads} "
+                         f"values) a multiple of 16 bytes, and at most 2 "
+                         f"queue slots")
+    if vgrid.data_ptr() % 16 or attn.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: vgrid and attn must be 16-byte "
+                         f"aligned")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

@@ -22,13 +22,16 @@ PC_RANGE = (-40.0, -40.0, -1.0, 40.0, 40.0, 5.4)
 IMG_HW = (64, 96)
 
 
-def _ring_cameras(n_cam=3, batch=1, yaw0=0.0):
+def _ring_cameras(n_cam=3, batch=1, yaw0=0.0, spacing=None):
+    """Cameras yawed 2*pi/n_cam apart (``spacing`` rad apart if given),
+    each 0.1 rad more a batch element; 77-degree fields of view."""
     ego2img = np.zeros((batch, n_cam, 4, 4), np.float32)
     K = np.array([[60.0, 0, 48], [0, 60, 32], [0, 0, 1]])
     base = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    step = 2 * np.pi / n_cam if spacing is None else spacing
     for b in range(batch):
         for ci in range(n_cam):
-            a = yaw0 + 2 * np.pi * ci / n_cam + 0.1 * b
+            a = yaw0 + step * ci + 0.1 * b
             Rz = np.array([[np.cos(a), -np.sin(a), 0],
                            [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
             m = np.eye(4, dtype=np.float32)
@@ -67,6 +70,97 @@ def _compare(feats, ego2img, bev_hw=(14, 14), num_z=4, pallas=True):
 def test_lift_matches_jax(batch):
     rng = np.random.RandomState(batch)
     _compare(_feats(rng, batch=batch), _ring_cameras(batch=batch))
+
+
+def test_lift_matches_jax_with_overlapping_cameras():
+    """Six cameras yawed 20 degrees apart, so that their 77-degree fields of
+    view overlap and some cells are seen by 3 or more cameras (the tap lists
+    of the CUDA kernel are at their longest there): the count exactly, U_bar
+    within the bf16 bound, against the einsum and the Pallas lift."""
+    rng = np.random.RandomState(9)
+    ego2img = _ring_cameras(n_cam=6, batch=2, spacing=np.pi / 9)
+    _, count = _compare(_feats(rng, n_cam=6, batch=2), ego2img)
+    assert count.max() >= 3, count.max()
+
+
+def _edge_positions(rng, B, A, ZR, M, h, w):
+    """Positions that probe the sampler's edges: uniform over (-1.5, n + 0.5)
+    of each axis extent n, a fifth made integral, band-limited to (-1, n)
+    as `level_geometry` does (the rest dead, -2), a fifth more dead, and a
+    random pass order a plane."""
+    steep = rng.rand(B, A, ZR) < 0.5
+
+    def draw(n):
+        p = (rng.rand(*n.shape) * (n + 2.0) - 1.5).astype(np.float32)
+        p = np.where(rng.rand(*n.shape) < 0.2, np.round(p), p)
+        dead = (rng.rand(*n.shape) < 0.2) | (p <= -1.0) | (p >= n)
+        return np.where(dead, np.float32(-2.0), p).astype(np.float32)
+
+    n2 = np.broadcast_to(np.where(steep, h, w)[..., None], (B, A, ZR, M))
+    n1 = np.broadcast_to(np.r_[np.full(w, h), np.full(h, w)],
+                         (B, A, ZR, w + h))
+    return draw(n1.astype(np.float32)), draw(n2.astype(np.float32)), steep
+
+
+def _lift_loop(feat, pos1, pos2, steep, inv_count):
+    """The level lift as an explicit float32 loop in numpy: per cell,
+    camera ascending, then dk, then dj, each step acc + (w2 * w1) * f in
+    separate float32 roundings (taps outside the axis skipped), then
+    acc * inv_count.  Returns float32 (B, ZR, M, C)."""
+    B, A, h, w, C = feat.shape
+    ZR, M = pos2.shape[2:]
+    R = inv_count.shape[1] // M
+    one = np.float32(1.0)
+    out = np.zeros((B, ZR, M, C), np.float32)
+    for b, zr, m in np.ndindex(B, ZR, M):
+        acc = np.zeros(C, np.float32)
+        for a in range(A):
+            st = bool(steep[b, a, zr])
+            n2, n1 = (h, w) if st else (w, h)
+            p2 = pos2[b, a, zr, m]
+            k0 = np.floor(p2)
+            f2 = p2 - k0
+            for dk in (0, 1):
+                k = int(k0) + dk
+                if not 0 <= k < n2:
+                    continue
+                w2 = f2 if dk else one - f2
+                p1 = pos1[b, a, zr, (w if st else 0) + k]
+                j0 = np.floor(p1)
+                f1 = p1 - j0
+                for dj in (0, 1):
+                    j = int(j0) + dj
+                    if not 0 <= j < n1:
+                        continue
+                    wt = w2 * (f1 if dj else one - f1)
+                    y, x = (k, j) if st else (j, k)
+                    acc = acc + wt * feat[b, a, y, x]
+        out[b, zr, m] = acc * inv_count[b, (zr % R) * M + m]
+    return out
+
+
+def test_lift_level_plain_is_the_ordered_fp32_loop():
+    """`lift_level_plain` pins the summation order the CUDA kernel repeats
+    (camera, dk, dj; separate fp32 roundings; then 1/count): bitwise equal
+    to an explicit float32 loop on edge positions (dead, integral, k = -1
+    and k = n - 1 taps, both pass orders), in fp32 and, rounded once, in
+    bf16."""
+    rng = np.random.RandomState(10)
+    B, A, R, Z, M, h, w, C = 2, 3, 3, 2, 5, 4, 6, 8
+    pos1, pos2, steep = _edge_positions(rng, B, A, Z * R, M, h, w)
+    feat = torch.from_numpy(rng.randn(B, A, h, w, C).astype(np.float32)
+                            ).bfloat16()
+    inv = (1.0 / rng.randint(1, 4, (B, R * M))).astype(np.float32)
+    want = _lift_loop(feat.float().numpy(), pos1, pos2, steep, inv)
+    assert (pos2 > -2).any() and (pos2 == np.round(pos2)).any()
+    args = [torch.from_numpy(x) for x in (pos1, pos2, steep, inv)]
+    out = torch.empty(B, Z * R, M, C)
+    lift_level(feat, *args, out)
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert np.abs(want).max() > 0
+    out16 = torch.empty(B, Z * R, M, C, dtype=torch.bfloat16)
+    lift_level(feat, *args, out16)
+    assert torch.equal(out16, torch.from_numpy(want).bfloat16())
 
 
 def test_lift_windowed_level_batch2():
@@ -326,3 +420,31 @@ def test_lift_bwd_index_raises_when_a_run_is_not_monotone():
     bad[0, a, zr, m + 1] = -2.0
     with pytest.raises(ValueError, match="not one monotone run"):
         lift_bwd_index(pos1, bad, steep, (16, 24))
+
+
+def test_bench_edits_match_the_kernel_sources():
+    """The development builds of `tools/bench_lift_tap.py` edit this
+    checkout's `csrc/lift.cu` and `csrc/tap.cu` by exact text; each edit
+    must still match once, or the tool would stop on the card."""
+    import os
+    from occnet_tpu_torch.ops import _build
+    from occnet_tpu_torch.tools import bench_lift_tap as bench
+    csrc = os.path.dirname(_build.BUILD_DIR)
+    for edits in (bench.CHANGE_NO_GATHER, bench.CHANGE_NO_LOAD,
+                  bench.CHANGE_STORE_ONLY, bench.CHANGE_BATCH8,
+                  bench.CHANGE_TAP16):
+        for name, old, _ in edits:
+            with open(os.path.join(csrc, name)) as f:
+                assert f.read().count(old) == 1, old
+
+
+@pytest.mark.parametrize("tool", ["bench_lift_tap", "profile_turbo"])
+def test_card_tools_refuse_to_run_without_a_card(tool, monkeypatch):
+    """The timing tools measure the card only: without one they exit with a
+    message instead of timing the CPU."""
+    import importlib
+    mod = importlib.import_module(f"occnet_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--parent", "."] if tool == "bench_lift_tap" else []
+    with pytest.raises(SystemExit, match="CUDA device"):
+        mod.main(args)

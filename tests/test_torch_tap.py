@@ -60,6 +60,28 @@ def test_plain_tap_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("shape", [dict(B=2, H=9, W=13),
+                                   dict(B=2, H=11, W=7, heads=8, D=8)])
+def test_plain_tap_matches_xla_and_pallas_odd_grid(shape):
+    """H and W that are not multiples of the CUDA kernel's 8 x 8 tile, at
+    B = 2, so that every tile edge and the halo on all four borders is
+    exercised: the plain version against the XLA shift loop (fp32, 1e-5)
+    and the Pallas kernel in interpret mode (bf16 inputs, 2e-2)."""
+    vgrid, attn = _case(seed=7, **shape)
+    got = tap_attention_plain(torch.from_numpy(vgrid),
+                              torch.from_numpy(attn)).numpy()
+    ref = np.asarray(tap_attention_xla(jnp.asarray(vgrid), jnp.asarray(attn)))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    ref = np.asarray(tap_attention_pallas(jnp.asarray(vgrid),
+                                          jnp.asarray(attn)))
+    np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+    # each sample alone gives its rows of the batch, bitwise
+    for b in range(vgrid.shape[0]):
+        one = tap_attention_plain(torch.from_numpy(vgrid[b:b + 1]),
+                                  torch.from_numpy(attn[b:b + 1])).numpy()
+        np.testing.assert_array_equal(one[0], got[b])
+
+
 def test_plain_tap_bf16_inputs():
     """bf16 inputs (the serving dtype) give the fp32-accumulated result of
     the bf16-rounded values, as the JAX shift loop does."""
