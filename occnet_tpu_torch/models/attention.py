@@ -2,8 +2,10 @@
 `occnet_tpu/models/attention.py`: `MSDeformableAttention3D`,
 `SpatialCrossAttention` (static top-K camera compaction, or dense-masked) and
 `TemporalSelfAttention`.  All deformable sampling goes through
-`ops.msda.multi_scale_deformable_attention` (the CUDA kernel on the card, the
-plain version on the CPU).
+`ops.msda.multi_scale_deformable_attention`, forward and backward (the CUDA
+kernels on the card, the plain versions on the CPU); in training the
+gradients reach the gathered queries and values through `torch.gather`,
+and the camera outputs' through `scatter_add_`, as in JAX.
 
 `SpatialCrossAttention` returns its exactness certificate,
 `sca_topk_overflow`: the number of visible queries that did not fit the

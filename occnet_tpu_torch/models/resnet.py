@@ -7,7 +7,13 @@ padding: 7x7/2 pad 3 stem, 3/2 pad 1 max pool with -inf padding.  The norm is
 folded into one multiply-add in the compute dtype.  With `dcn_stages`, the 3x3
 conv of those stages' bottlenecks is a modulated deformable conv
 (`ops/deform_conv.ModulatedDeformConv`, R101-DCN), whose sampling is the
-CUDA kernel `csrc/deform_conv.cu`.  `frozen_stages` runs the
+CUDA kernel `csrc/deform_conv.cu`.  In training, the DCN layer's autograd
+Function saves its input, offsets, mask and weight and recomputes the 9-tap
+columns in the backward: the counterpart of the JAX package's `nn.remat`
+of DCN blocks, which exists to drop those columns (~216 MB a block).  The
+blocks themselves are not recomputed: a second forward would add the
+window certificate into its counter twice and update a
+`TrainableBatchNorm`'s running statistics twice.  `frozen_stages` runs the
 stem and stages <= frozen_stages under `torch.no_grad()`, the counterpart of
 the JAX package's `stop_gradient` (their parameters get no gradient and their
 activations stay out of the autograd graph).  Convolutions are cuDNN

@@ -45,10 +45,20 @@ order than an fp32 matmul), and the window certificate of the layer is
 counted in the same kernel.  For fp32 CUDA tensors it is the sampling
 kernel followed by `torch.matmul`, and for CPU tensors the plain version.
 
+The backward of the sampling (`deform_sample_backward_*`, the kernel
+`occ_deform_sample_bwd` of `csrc/deform_conv_bwd.cu`) is its transpose:
+dx in x's dtype (fp32 sums, one rounding), doffset and dmask in fp32, with
+the same integer part and fraction as the forward and no gradient through a
+corner outside the image.  `deform_conv` is differentiable
+(`DeformConvFunction`): its backward recomputes the columns, takes
+dwmat = cols^T dy and dcols = dy wmat^T with `torch.matmul` (plain large
+products, which the JAX package leaves to XLA) and runs the sampling's
+backward.  It saves x, offset, mask and wmat, never the 9-tap columns: the
+counterpart of the JAX package's remat of DCN blocks.
+
 Every wrapper launches its kernel for CUDA tensors and the plain version
-runs for CPU tensors, never falling back from one to the other.  The CUDA
-path is forward only: it raises on inputs that require grad (the DCN
-backward comes with R101-DCN training).
+runs for CPU tensors, never falling back from one to the other.  The
+`*_cuda` wrappers are raw launches outside autograd.
 """
 
 from __future__ import annotations
@@ -66,6 +76,9 @@ DEFORM = Kernel("occ_deform_sample", [P, P, P, P, I32, I32, I32, I32, I32,
                                       I32, I32, I32, P])
 DEFORM_CONV = Kernel("occ_deform_conv", [P, P, P, P, P, P, I32, I32, I32,
                                          I32, I32, I32, I32, I32, I32, P])
+DEFORM_BWD = Kernel("occ_deform_sample_bwd", [P, P, P, P, P, P, P, I32, I32,
+                                                I32, I32, I32, I32, I32, I32,
+                                                P])
 CONV_K_STEP = 32            # input channels of one K step of occ_deform_conv
 CONV_N_TILE = 256           # output channels of one of its blocks
 
@@ -78,14 +91,14 @@ def out_size(h: int, w: int, stride: int) -> Tuple[int, int]:
     return -(-h // stride), -(-w // stride)
 
 
-def deform_sample_plain(x: torch.Tensor, offset: torch.Tensor,
-                        mask: Optional[torch.Tensor], stride: int = 1,
-                        dilation: int = 1) -> torch.Tensor:
-    """The contract above in plain PyTorch, corner by corner: gather the
-    clamped corner rows and add weight * row in fp32."""
-    B, h, w, C = x.shape
-    ho, wo = _check(x, offset, mask, stride, dilation)
-    dev = x.device
+def _corners(B: int, h: int, w: int, offset: torch.Tensor, stride: int):
+    """The sample arithmetic of the contract, shared by the plain forward
+    and backward: the fractions (ty, tx) of every (pixel, tap) sample, each
+    (B, ho, wo, 9) fp32, and for each corner (i, j) of `_CORNERS` whether it
+    adds (inside the image) and the flat row of x (B * h * w, C) it reads,
+    clamped into the image."""
+    ho, wo = offset.shape[1:3]
+    dev = offset.device
     off = offset.float()
     k = torch.arange(TAPS, device=dev)
     by = (torch.arange(ho, device=dev) * stride - 1)[:, None, None] \
@@ -101,19 +114,34 @@ def deform_sample_plain(x: torch.Tensor, offset: torch.Tensor,
     inside = (ry > -2.0) & (ry < h) & (rx > -2.0) & (rx < w)
     y0 = ry.clamp(-1.0, h - 1.0).long()
     x0 = rx.clamp(-1.0, w - 1.0).long()
+    b_base = (torch.arange(B, device=dev) * h)[:, None, None, None]
+    corners = []
+    for i, j in _CORNERS:
+        cy, cx = y0 + i, x0 + j
+        valid = inside & (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+        idx = (b_base + cy.clamp(0, h - 1)) * w + cx.clamp(0, w - 1)
+        corners.append((valid, idx))
+    return ty, tx, corners
+
+
+def deform_sample_plain(x: torch.Tensor, offset: torch.Tensor,
+                        mask: Optional[torch.Tensor], stride: int = 1,
+                        dilation: int = 1) -> torch.Tensor:
+    """The contract above in plain PyTorch, corner by corner: gather the
+    clamped corner rows and add weight * row in fp32."""
+    B, h, w, C = x.shape
+    ho, wo = _check(x, offset, mask, stride, dilation)
+    ty, tx, corners = _corners(B, h, w, offset, stride)
     wx = (1.0 - tx, tx)
     if mask is not None:
         m = mask.float()
         wx = (wx[0] * m, wx[1] * m)
     wy = (1.0 - ty, ty)
     rows = x.reshape(B * h * w, C)
-    b_base = (torch.arange(B, device=dev) * h)[:, None, None, None]
-    acc = torch.zeros(B, ho, wo, TAPS, C, dtype=torch.float32, device=dev)
-    for i, j in _CORNERS:
-        cy, cx = y0 + i, x0 + j
-        valid = inside & (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+    acc = torch.zeros(B, ho, wo, TAPS, C, dtype=torch.float32,
+                      device=x.device)
+    for (i, j), (valid, idx) in zip(_CORNERS, corners):
         wgt = torch.where(valid, wy[i] * wx[j], torch.zeros_like(ty))
-        idx = (b_base + cy.clamp(0, h - 1)) * w + cx.clamp(0, w - 1)
         g = rows[idx.reshape(-1)].float().reshape(B, ho, wo, TAPS, C)
         acc = acc + wgt[..., None] * g
     return acc.to(x.dtype).reshape(B, ho * wo, TAPS * C)
@@ -122,16 +150,13 @@ def deform_sample_plain(x: torch.Tensor, offset: torch.Tensor,
 def deform_sample_cuda(x: torch.Tensor, offset: torch.Tensor,
                        mask: Optional[torch.Tensor], stride: int = 1,
                        dilation: int = 1) -> torch.Tensor:
-    """`deform_sample_plain` as one launch of the CUDA kernel (forward
-    only).  x must be a contiguous NHWC tensor (the trunk's channels-last
-    NCHW activations permuted): the wrapper raises rather than copy."""
+    """`deform_sample_plain` as one launch of the CUDA kernel (no
+    autograd).  x must be a contiguous NHWC tensor (the trunk's
+    channels-last NCHW activations permuted): the wrapper raises rather
+    than copy."""
     B, h, w, C = x.shape
     ho, wo = _check(x, offset, mask, stride, dilation)
     ins = [x, offset] + ([] if mask is None else [mask])
-    if any(t.requires_grad for t in ins):
-        raise ValueError("deform_sample kernel: forward only, inputs must "
-                         "not require grad (R101-DCN training is not ported "
-                         "yet)")
     if not x.is_cuda:
         raise ValueError(f"deform_sample kernel: tensors must be on a CUDA "
                          f"device, got {x.device}")
@@ -158,6 +183,105 @@ def deform_sample_cuda(x: torch.Tensor, offset: torch.Tensor,
     return cols
 
 
+def deform_sample_backward_plain(x: torch.Tensor, offset: torch.Tensor,
+                                 mask: Optional[torch.Tensor],
+                                 dcols: torch.Tensor, stride: int = 1,
+                                 need_dx: bool = True
+                                 ) -> Tuple[Optional[torch.Tensor],
+                                            torch.Tensor,
+                                            Optional[torch.Tensor]]:
+    """The transpose of `deform_sample_plain` for the columns' gradient
+    ``dcols`` (B, ho * wo, 9 * C), written out corner by corner (not through
+    autograd) -> (dx (B, h, w, C) in x's dtype, or None without
+    ``need_dx``; doffset (B, ho, wo, 9, 2) fp32; dmask (B, ho, wo, 9) fp32,
+    or None without a mask).  With x_ij a corner's row (0 outside the
+    image), g a sample's column gradient and m its mask:
+
+        dx[corner ij] += wy_i * (wx_j * m) * g
+        doffset_y = m * sum_c g * [(1 - tx)(x10 - x00) + tx (x11 - x01)]
+        doffset_x = m * sum_c g * [(1 - ty)(x01 - x00) + ty (x11 - x10)]
+        dmask     = sum_c g * (the unmasked sample)"""
+    B, h, w, C = x.shape
+    ho, wo = _check(x, offset, mask, stride, 1)
+    if tuple(dcols.shape) != (B, ho * wo, TAPS * C):
+        raise ValueError(f"deform_sample backward: dcols "
+                         f"{tuple(dcols.shape)} != {(B, ho * wo, TAPS * C)}")
+    ty, tx, corners = _corners(B, h, w, offset, stride)
+    m = torch.ones_like(ty) if mask is None else mask.float()
+    wy, wxu = (1.0 - ty, ty), (1.0 - tx, tx)
+    rows = x.reshape(B * h * w, C)
+    g = dcols.reshape(B, ho, wo, TAPS, C).float()
+    x00, x01, x10, x11 = [
+        rows[idx.reshape(-1)].float().reshape(B, ho, wo, TAPS, C)
+        * valid[..., None] for valid, idx in corners]
+    un = (wy[0][..., None] * (wxu[0][..., None] * x00
+                              + wxu[1][..., None] * x01)
+          + wy[1][..., None] * (wxu[0][..., None] * x10
+                                + wxu[1][..., None] * x11))
+    gy = wxu[0][..., None] * (x10 - x00) + wxu[1][..., None] * (x11 - x01)
+    gx = wy[0][..., None] * (x01 - x00) + wy[1][..., None] * (x11 - x10)
+    doffset = torch.stack([m * (g * gy).sum(-1), m * (g * gx).sum(-1)], -1)
+    dmask = None if mask is None else (g * un).sum(-1)
+    dx = None
+    if need_dx:
+        acc = torch.zeros(B * h * w, C, dtype=torch.float32,
+                          device=x.device)
+        for (i, j), (valid, idx) in zip(_CORNERS, corners):
+            wgt = torch.where(valid, wy[i] * (wxu[j] * m),
+                              torch.zeros_like(ty))
+            acc.index_add_(0, idx.reshape(-1),
+                           (wgt[..., None] * g).reshape(-1, C))
+        dx = acc.reshape(B, h, w, C).to(x.dtype)
+    return dx, doffset, dmask
+
+
+def deform_sample_backward_cuda(x: torch.Tensor, offset: torch.Tensor,
+                                mask: Optional[torch.Tensor],
+                                dcols: torch.Tensor, stride: int = 1,
+                                need_dx: bool = True
+                                ) -> Tuple[Optional[torch.Tensor],
+                                           torch.Tensor,
+                                           Optional[torch.Tensor]]:
+    """`deform_sample_backward_plain` as one launch of
+    `occ_deform_sample_bwd` (dx by fp32 atomics into a zeroed buffer,
+    rounded once to x's dtype; skipped without ``need_dx``)."""
+    B, h, w, C = x.shape
+    ho, wo = _check(x, offset, mask, stride, 1)
+    ins = [x, offset, dcols] + ([] if mask is None else [mask])
+    if not x.is_cuda:
+        raise ValueError(f"deform_sample backward kernel: tensors must be on "
+                         f"a CUDA device, got {x.device}")
+    if any(t.device != x.device for t in ins):
+        raise ValueError("deform_sample backward kernel: x, offset, mask "
+                         "and dcols must share one device")
+    if x.dtype not in (torch.bfloat16, torch.float32) \
+            or dcols.dtype != x.dtype or offset.dtype != torch.float32 \
+            or (mask is not None and mask.dtype != torch.float32):
+        raise ValueError(f"deform_sample backward kernel: x and dcols bf16 "
+                         f"or f32 alike, fp32 offset/mask, got "
+                         f"{[t.dtype for t in ins]}")
+    if tuple(dcols.shape) != (B, ho * wo, TAPS * C):
+        raise ValueError(f"deform_sample backward kernel: dcols "
+                         f"{tuple(dcols.shape)} != {(B, ho * wo, TAPS * C)}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("deform_sample backward kernel: inputs must be "
+                         "contiguous")
+    if C % 4 or x.data_ptr() % 8 or dcols.data_ptr() % 8:
+        raise ValueError(f"deform_sample backward kernel: C = {C} must be a "
+                         f"multiple of 4, x and dcols 8-byte aligned")
+    dx = (torch.zeros(B, h, w, C, dtype=torch.float32, device=x.device)
+          if need_dx else None)
+    doffset = torch.empty_like(offset)
+    dmask = None if mask is None else torch.empty_like(mask)
+    DEFORM_BWD(x.data_ptr(), offset.data_ptr(),
+               None if mask is None else mask.data_ptr(), dcols.data_ptr(),
+               None if dx is None else dx.data_ptr(), doffset.data_ptr(),
+               None if dmask is None else dmask.data_ptr(),
+               int(x.dtype == torch.bfloat16), B, h, w, C, ho, wo, stride,
+               torch.cuda.current_stream(x.device).cuda_stream)
+    return (None if dx is None else dx.to(x.dtype)), doffset, dmask
+
+
 def deform_conv_plain(x: torch.Tensor, offset: torch.Tensor,
                       mask: Optional[torch.Tensor], wmat: torch.Tensor,
                       stride: int = 1, radius: Optional[int] = None
@@ -180,7 +304,7 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
                      count: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`deform_conv_plain` for bf16 as one launch of `occ_deform_conv`
-    (forward only).  With ``radius`` the layer's window certificate is
+    (no autograd).  With ``radius`` the layer's window certificate is
     ADDED to ``count`` (a 1-element int32 tensor on x's device; a zeroed
     one is made when None) and returned; without, None is returned.  x must
     be a contiguous NHWC tensor (the trunk's channels-last NCHW activations
@@ -188,10 +312,6 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
     B, h, w, C = x.shape
     ho, wo = _check(x, offset, mask, stride, 1)
     ins = [x, offset, wmat] + ([] if mask is None else [mask])
-    if any(t.requires_grad for t in ins):
-        raise ValueError("deform_conv kernel: forward only, inputs must not "
-                         "require grad (R101-DCN training is not ported "
-                         "yet)")
     if x.dtype != torch.bfloat16 or wmat.dtype != torch.bfloat16 \
             or offset.dtype != torch.float32 \
             or (mask is not None and mask.dtype != torch.float32):
@@ -253,16 +373,10 @@ def deform_conv_pair(x: torch.Tensor, offset: torch.Tensor,
     return y, _added(over, count)
 
 
-def deform_conv(x: torch.Tensor, offset: torch.Tensor,
-                mask: Optional[torch.Tensor], wmat: torch.Tensor,
-                stride: int = 1, radius: Optional[int] = None,
-                count: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The layer's sampling and product -> (y (B, ho, wo, Cout), the window
-    certificate at ``radius`` or None): `occ_deform_conv` for bf16 CUDA
-    tensors, `deform_conv_pair` for fp32 CUDA tensors, the plain version
-    for CPU tensors.  A given ``count`` (1-element int32) has the
-    certificate added to it and is returned in its place."""
+def _deform_conv_forward(x, offset, mask, wmat, stride, radius, count):
+    """`deform_conv`'s forward outside autograd: `occ_deform_conv` for bf16
+    CUDA tensors, `deform_conv_pair` for fp32 CUDA tensors, the plain
+    version for CPU tensors."""
     if x.is_cuda:
         if x.dtype == torch.bfloat16:
             return deform_conv_cuda(x, offset, mask, wmat, stride, radius,
@@ -272,6 +386,68 @@ def deform_conv(x: torch.Tensor, offset: torch.Tensor,
         y, over = deform_conv_plain(x, offset, mask, wmat, stride, radius)
         return y, _added(over, count)
     raise ValueError(f"deform_conv: no implementation for {x.device}")
+
+
+class DeformConvFunction(torch.autograd.Function):
+    """`deform_conv` differentiable in x, offset, mask and wmat.  Saves
+    those four (never the 9-tap columns); the certificate is an output
+    without gradient, counted once by the forward (a given counter is
+    updated in place and returned), never by the backward.  The backward:
+    the columns again by the sampling kernel (plain on the CPU),
+    dwmat = cols^T dy and dcols = dy wmat^T by `torch.matmul`, then the
+    sampling's backward; only the gradients asked for are computed."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, wmat, stride, radius, count):
+        y, cert = _deform_conv_forward(x, offset, mask, wmat, stride, radius,
+                                       count)
+        ctx.stride = stride
+        ctx.save_for_backward(x, offset, mask, wmat)
+        if cert is not None:
+            if cert is count:
+                ctx.mark_dirty(count)
+            ctx.mark_non_differentiable(cert)
+        return y, cert
+
+    @staticmethod
+    def backward(ctx, dy, _dcert):
+        x, offset, mask, wmat = ctx.saved_tensors
+        need_x, need_off, need_mask, need_w = ctx.needs_input_grad[:4]
+        B, ho, wo, N = dy.shape
+        dy = dy.reshape(B, ho * wo, N)
+        cuda = x.is_cuda
+        dx = doffset = dmask = dwmat = None
+        if need_w:
+            cols = (deform_sample_cuda if cuda else deform_sample_plain)(
+                x, offset, mask, ctx.stride)
+            dwmat = torch.matmul(cols.reshape(-1, cols.shape[-1]).t(),
+                                 dy.reshape(-1, N))
+            del cols
+        if need_x or need_off or need_mask:
+            dcols = torch.matmul(dy, wmat.t())
+            bwd = (deform_sample_backward_cuda if cuda
+                   else deform_sample_backward_plain)
+            dx, doffset, dmask = bwd(x, offset, mask, dcols, ctx.stride,
+                                     need_dx=need_x)
+        return (dx, doffset if need_off else None,
+                dmask if need_mask else None, dwmat, None, None, None)
+
+
+def deform_conv(x: torch.Tensor, offset: torch.Tensor,
+                mask: Optional[torch.Tensor], wmat: torch.Tensor,
+                stride: int = 1, radius: Optional[int] = None,
+                count: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's sampling and product -> (y (B, ho, wo, Cout), the window
+    certificate at ``radius`` or None), differentiable in x, offset, mask
+    and wmat (`DeformConvFunction`): `occ_deform_conv` for bf16 CUDA
+    tensors, `deform_conv_pair` for fp32 CUDA tensors, the plain version
+    for CPU tensors.  A given ``count`` (1-element int32) has the
+    certificate added to it and is returned in its place."""
+    if not (x.is_cuda or x.device.type == "cpu"):
+        raise ValueError(f"deform_conv: no implementation for {x.device}")
+    return DeformConvFunction.apply(x, offset, mask, wmat, stride, radius,
+                                    count)
 
 
 def _added(over: Optional[torch.Tensor], count: Optional[torch.Tensor]

@@ -11,7 +11,9 @@ two warm-up steps, then one profiled step.  For each it prints the summed
 time of the device's kernels and copies, the time the card was busy (the
 union of their intervals), the span from the first start to the last end,
 and the summed time of the lift (`lift_level_kernel`) and tap-attention
-(`tap_kernel`) forward kernels, as one JSON line.
+(`tap_kernel`) forward kernels, as one JSON line (`device_profile` also
+sums the MSDA and DCN sampling backward kernels, for the exact and
+R101-DCN train steps of chip_smoke.py).
 
 It uses only the package's public entry points, so it also measures another
 checkout of the package: run this file by its path with that checkout's
@@ -29,11 +31,14 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-KERNELS = {"lift": "lift_level_kernel", "tap": "tap_kernel<"}
+KERNELS = {"lift": "lift_level_kernel", "tap": "tap_kernel<",
+           "msda_bwd": "msda_bwd_kernel",
+           "dcn_bwd": "deform_sample_bwd_kernel"}
 
 
-def device_profile(fn: Callable[[], object]) -> Dict[str, float]:
-    """ms of device activity in one call of ``fn`` (see the module doc)."""
+def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
+    """ms of device activity in one call of ``fn`` (see the module doc),
+    plus ``by_name``: the ms of each kernel or copy name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -55,6 +60,11 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, float]:
     for key, name in KERNELS.items():
         out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start
                                for e in events if name in e.name) / 1e3
+    by_name: Dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    out["by_name"] = by_name
     return out
 
 

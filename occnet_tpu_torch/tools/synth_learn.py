@@ -7,12 +7,14 @@ split.
         --configs synth_tiny_turbo_occ --scenes 256 --steps 500 --batch 2
     python -m occnet_tpu_torch.tools.synth_learn \\
         --configs synth_tiny_turbo_occ --steps 2000 --eval-every 500
+    python -m occnet_tpu_torch.tools.synth_learn \\
+        --configs synth_tiny_occ --scenes 256 --steps 2000 --batch 2
 
-Only the dense (turbo) encoder trains on the card; an exact-mode config
-(gather encoder) is refused, since its deformable-attention kernel has no
-backward yet.  Scenes are rendered on ``--device`` (the card unless
-``--device cpu``); ``--cache-dir`` keeps them on disk between runs.  Writes
-a JSON summary to ``--out``.
+Both encoders train: the dense (turbo) one and the exact (gather) one,
+whose deformable attention runs forward and backward through the MSDA
+kernels.  Scenes are rendered on ``--device`` (the card unless ``--device
+cpu``); ``--cache-dir`` keeps them on disk between runs.  Writes a JSON
+summary to ``--out``.
 """
 
 from __future__ import annotations
@@ -156,12 +158,6 @@ def main(argv: Optional[Sequence[str]] = None):
     from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
 
     names = args.configs.split(",")
-    for n in names:
-        if get_config(n).model.encoder.mode != "dense":
-            raise SystemExit(f"{n}: the exact (gather) encoder does not "
-                             f"train on the card yet (no backward of the "
-                             f"deformable-attention kernel); only dense "
-                             f"configs such as synth_tiny_turbo_occ run")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("synth_learn: no CUDA device is available; pass "

@@ -17,6 +17,10 @@ optax's `set_to_zero` leaves them.
 Randomness: each step draws its grid mask, photometric distortion and dropout
 masks from one `torch.Generator` on the model's device, seeded from
 (seed, step) as the JAX package folds the step into its key.
+
+Every named config trains: the dense and gather encoders, plain and DCN
+trunks (their backward kernels behind the autograd Functions of
+`ops/planar_lift`, `ops/tsa`, `ops/msda` and `ops/deform_conv`).
 """
 
 from __future__ import annotations

@@ -509,10 +509,6 @@ def test_cuda_wrapper_refusals():
     launches = port.DEFORM.launches
     with pytest.raises(ValueError, match="CUDA device"):
         port.deform_sample_cuda(xt, ot, mt)
-    with pytest.raises(ValueError, match="forward only"):
-        port.deform_sample_cuda(xt.clone().requires_grad_(), ot, mt)
-    with pytest.raises(ValueError, match="forward only"):
-        port.deform_sample_cuda(xt, ot, mt.clone().requires_grad_())
     with pytest.raises(ValueError, match="stride 1 or 2"):
         port.deform_sample_cuda(xt, ot, mt, stride=3)
     with pytest.raises(ValueError, match="dilation 1"):
@@ -522,6 +518,13 @@ def test_cuda_wrapper_refusals():
     with pytest.raises(ValueError, match="mask"):
         port.deform_sample_cuda(xt, ot, mt[..., :4])
     assert port.DEFORM.launches == launches
+    dcols = torch.zeros(2, 7 * 9, 9 * 8)
+    launches = port.DEFORM_BWD.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        port.deform_sample_backward_cuda(xt, ot, mt, dcols)
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        port.deform_sample_backward_cuda(xt, ot, mt, dcols, stride=3)
+    assert port.DEFORM_BWD.launches == launches
 
 
 def conv_case(seed, B=2, h=7, w=9, C=8, cout=6, off_scale=1.5, ho=None,
@@ -663,10 +666,6 @@ def test_fused_cuda_wrapper_refusals():
     launches = port.DEFORM_CONV.launches
     with pytest.raises(ValueError, match="CUDA device"):
         port.deform_conv_cuda(xt, ot, mt, wt)
-    with pytest.raises(ValueError, match="forward only"):
-        port.deform_conv_cuda(xt.clone().requires_grad_(), ot, mt, wt)
-    with pytest.raises(ValueError, match="forward only"):
-        port.deform_conv_cuda(xt, ot, mt, wt.float().requires_grad_())
     with pytest.raises(ValueError, match="bf16 x and wmat"):
         port.deform_conv_cuda(xt.float(), ot, mt, wt)
     with pytest.raises(ValueError, match="bf16 x and wmat"):

@@ -306,7 +306,17 @@ def test_synth_learn_runs_the_turbo_arm(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["synth_tiny_occ"])
-def test_synth_learn_refuses_the_exact_encoder(name):
+def test_synth_learn_runs_the_exact_encoder(tmp_path, name):
+    """The exact (gather) arm trains: 2 steps of synth_tiny_occ at the tiny
+    size on the CPU, finite loss and RayIoU, certificate 0 over the run."""
     from occnet_tpu_torch.tools import synth_learn
-    with pytest.raises(SystemExit, match="does not train on the card"):
-        synth_learn.main(["--configs", name, "--device", "cpu"])
+    res = synth_learn.main(
+        ["--configs", name, "--device", "cpu", "--scenes", "2",
+         "--val-scenes", "1", "--steps", "2", "--batch", "1",
+         "--log-interval", "1", "--out", str(tmp_path / "synth.json"),
+         "--set"] + [f"{k}={v}" for k, v in TINY.items()])
+    (r,) = res["results"]
+    assert r["config"] == name and [h["step"] for h in r["history"]] == [0, 1]
+    assert np.isfinite(r["final_loss"]) and np.isfinite(
+        r["scores"]["RayIoU"])
+    assert r["cert_overflow_total"] == 0

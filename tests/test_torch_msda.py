@@ -102,10 +102,13 @@ def test_cuda_wrapper_refuses_cpu_and_grad_inputs():
     launches = port.MSDA.launches
     with pytest.raises(ValueError, match="CUDA device"):
         port.msda_cuda(v, shapes, l, a)
-    with pytest.raises(ValueError, match="forward only"):
-        port.msda_cuda(v.clone().requires_grad_(), shapes, l, a)
-    with pytest.raises(ValueError, match="forward only"):
-        port.msda_cuda(v, shapes, l.clone().requires_grad_(), a)
     with pytest.raises(ValueError, match="value length"):
         port.msda_cuda(v[:, 1:], shapes, l, a)
     assert port.MSDA.launches == launches
+    g = torch.zeros(1, 5, v.shape[2] * v.shape[3])
+    launches = port.MSDA_BWD.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        port.msda_backward_cuda(v, shapes, l, a, g)
+    with pytest.raises(ValueError, match="value length"):
+        port.msda_backward_cuda(v[:, 1:], shapes, l, a, g)
+    assert port.MSDA_BWD.launches == launches
