@@ -100,12 +100,18 @@ Phases (each raises on failure, so any failure exits nonzero):
               base_occ's SCA and TSA shapes, bf16 and f32, locations in
               [-0.2, 1.2]: every gradient within BWD_F32_TOL / BWD_BF16_TOL
               of max|plain| (fp32 atomics: dvalue is not bitwise
-              reproducible), dloc and dattn bitwise over two launches;
-              timed against the plain version and the bound
+              reproducible), dloc and dattn bitwise over two launches and
+              at B=2 against two B=1 calls (dvalue within the tolerance);
+              timed against the plain version and the bound, and in bf16
+              each SCA level alone (the per-level split); the hot-row case
+              (every sample of camera 0, head 0 inside rows 5-8 of level 3)
  20. kernels (dcn backward)  occ_deform_sample_bwd vs
               deform_sample_backward_plain at the four DCN shapes (stride 1
-              and the stride-2 stage entries), bf16 and f32, phase 12's
-              offsets; the same checks and timing
+              and the stride-2 stage entries): bf16 and f32 at phase 12's
+              offsets, bf16 at calibrated offsets (|offset| <=
+              DCN_TRAIN_MAX_PX); the same checks (doffset, dmask), a
+              need_dx=False launch skipping dx alone; the share of
+              samples the kernel scatters; timed per shape
  21. train parity (exact, DCN)  one fp32 train step card vs CPU on the
               small gather config (static top-K) and the small R50-DCN
               config (window DCN + dense, gather DCN + gather): loss 1e-3
@@ -121,7 +127,11 @@ Phases (each raises on failure, so any failure exits nonzero):
               / optimizer split, peak allocated, launches per step (8 msda
               and 8 msda_bwd; 26 fused DCN, 26 sampling for the backward's
               columns and 26 dcn_bwd), one more step under torch.profiler
-              with the backward kernels' device ms
+              with the backward kernels' device ms; then the backward
+              kernels on that profiled step's own inputs (base_occ: the
+              first encoder layer's SCA, level by level too, and TSA;
+              R101-DCN: layer3_1 with its scattered share), held and
+              timed as in 19 / 20
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -1377,6 +1387,8 @@ DCN_SHAPES = [("layer3_0", 116, 200, 256, 2, 1),
               ("layer3_1..22", 58, 100, 256, 1, 22),
               ("layer4_0", 58, 100, 512, 2, 1),
               ("layer4_1..2", 29, 50, 512, 1, 2)]
+# base_occ's SCA pyramid (h, w) for 900 x 1600 images, strides 8 to 64
+SCA_LEVELS = [(116, 200), (58, 100), (29, 50), (15, 25)]
 
 
 def phase_dcn_kernels(torch, results):
@@ -2318,65 +2330,202 @@ def grads_held(torch, label, got, want, tol, names):
     return worst
 
 
+def turns(torch, fns, reps):
+    """Each callable of ``fns`` (label -> fn) timed by CUDA events in the
+    order a, b, ..., b, a on one card; returns label -> mean ms."""
+    order = list(fns) + list(fns)[::-1]
+    times = [(k, cuda_ms(torch, fns[k], reps)) for k in order]
+    log("    times ms: " + ", ".join(f"{k} {t:.4f}" for k, t in times))
+    return {k: sum(t for j, t in times if j == k) / 2 for k in fns}
+
+
+def bwd_times(torch, kernel, plain, reps, args):
+    """``kernel(*args)`` timed, in turns with ``plain(*args)`` when it is
+    given; returns label -> ms."""
+    fns = {"kernel": kernel}
+    if plain is not None:
+        fns["plain"] = plain
+    return turns(torch, {k: (lambda f=f: f(*args)) for k, f in fns.items()},
+                 reps)
+
+
+def held_twice(torch, label, fn, plain, args, tol, names, exact):
+    """fn(*args) twice against plain(*args): every gradient within tol x
+    max|plain| (`grads_held`), the ``exact`` ones (indices) bitwise equal
+    over the two launches; returns the worst max|kernel - plain|."""
+    got, again, want = fn(*args), fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    worst = grads_held(torch, label, got, want, tol, names)
+    same = all(torch.equal(got[i], again[i]) for i in exact)
+    rerun = [f"{names[i]} "
+             f"{(got[i].float() - again[i].float()).abs().max().item():.3e}"
+             for i in range(len(got)) if i not in exact and got[i] is not None]
+    log(f"    two launches: {', '.join(names[i] for i in exact)} bitwise "
+        f"equal {same}; max|diff| {', '.join(rerun)} (fp32 atomics)")
+    if not same:
+        raise RuntimeError(f"{label}: one-writer gradients differ between "
+                           f"two launches")
+    return worst
+
+
+def batch_split_held(torch, label, fn, args, tol, names, exact):
+    """fn at B = 2 against two B = 1 calls on the same inputs (the tensors
+    of ``args`` sliced along their batch dimension): the ``exact`` outputs
+    bitwise equal, the others within tol x max|B = 2 result|."""
+    def part(i, j):
+        return [a[i:j] if isinstance(a, torch.Tensor) else a for a in args]
+
+    both = fn(*part(0, 2))
+    ones = [fn(*part(i, i + 1)) for i in range(2)]
+    torch.cuda.synchronize()
+    parts = []
+    for k, n in enumerate(names):
+        if both[k] is None:
+            continue
+        cat = torch.cat([o[k] for o in ones])
+        if k in exact:
+            ok = torch.equal(both[k], cat)
+            parts.append(f"{n} bitwise {ok}")
+        else:
+            err = (both[k].float() - cat.float()).abs().max().item()
+            scale = both[k].float().abs().max().item()
+            ok = err <= tol * scale
+            parts.append(f"{n} max|diff| {err:.3e} of {scale:.3e}")
+        if not ok:
+            raise RuntimeError(f"{label}: B = 2 differs from two B = 1 "
+                               f"calls in {n}")
+    log("    B=2 against two B=1 calls: " + ", ".join(parts))
+
+
+def msda_levels(v, shapes, loc, attn, g):
+    """Each level of an MSDA call alone, as an L = 1 call on the level's
+    value rows: [(label, args)], contiguous."""
+    out, start = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        out.append((f"level {lvl} {h}x{w}", (
+            v[:, start:start + h * w].contiguous(), [(h, w)],
+            loc[:, :, :, lvl:lvl + 1].contiguous(),
+            attn[:, :, :, lvl:lvl + 1].contiguous(), g)))
+        start += h * w
+    return out
+
+
+def msda_bwd_split(torch, label, v, shapes, loc, attn, g, reps=5):
+    """Step 0's split: the kernel timed on each level alone."""
+    from occnet_tpu_torch.ops import msda
+    for lvl, args in msda_levels(v, shapes, loc, attn, g):
+        log(f"  msda_bwd {label} {lvl} alone (L = 1):")
+        bwd_times(torch, msda.msda_backward_cuda, None, reps, args)
+
+
+def report_times(label, t, nb):
+    """One line: the times of `bwd_times` beside the bound of ``nb``
+    compulsory bytes; returns the bound in ms."""
+    b_ms, by = least_time(nb, 0.0)
+    log(f"  {label}: kernel {t['kernel']:.4f} ms"
+        + (f", plain {t['plain']:.4f} ms" if "plain" in t else "")
+        + f"; compulsory {nb / 1e6:.1f} MB, bound {b_ms:.4f} ms ({by}), "
+        f"kernel at {b_ms / t['kernel']:.1%} of it")
+    return b_ms
+
+
+def msda_bwd_case(torch, label, v, shapes, loc, attn, g, tol, plain=True,
+                  batch_split=False):
+    """One msda_bwd case: held to the plain version, dloc and dattn bitwise
+    over two launches (and at B = 2 against two B = 1 calls), then timed in
+    turns with the plain version; returns (worst error, times, bound ms)."""
+    from occnet_tpu_torch.ops import msda
+    args = (v, shapes, loc, attn, g)
+    names = ("dvalue", "dloc", "dattn")
+    worst = held_twice(torch, label, msda.msda_backward_cuda,
+                       msda.msda_backward_plain, args, tol, names, (1, 2))
+    if batch_split:
+        batch_split_held(torch, label, msda.msda_backward_cuda, args, tol,
+                         names, (1, 2))
+    t = bwd_times(torch, msda.msda_backward_cuda,
+                  msda.msda_backward_plain if plain else None, 3, args)
+    # value, loc, attn, grad read once; dvalue, dloc, dattn written once
+    nb = nbytes(v, loc, attn, g, v, loc, attn)
+    return worst, t, report_times(label, t, nb)
+
+
+def msda_draw(torch, gen, N, Q, H, D, shapes, P):
+    """value, loc in [-0.2, 1.2], softmaxed attn and an output gradient
+    (fp32) of one MSDA call, from ``gen``."""
+    dev = torch.device("cuda")
+    L, V = len(shapes), sum(h * w for h, w in shapes)
+    v32 = torch.randn(N, V, H, D, generator=gen, device=dev)
+    loc = torch.rand(N, Q, H, L, P, 2, generator=gen, device=dev) * 1.4 - 0.2
+    attn = torch.softmax(torch.randn(N, Q, H, L * P, generator=gen,
+                                     device=dev), -1
+                         ).reshape(N, Q, H, L, P).contiguous()
+    g32 = torch.randn(N, Q, H * D, generator=gen, device=dev)
+    return v32, loc, attn, g32
+
+
+def hot_rows(torch, loc, gen, rows=(5, 8), of=15):
+    """``loc`` with every sample of camera 0, head 0 inside rows
+    [rows[0], rows[1]] of a level of ``of`` rows (y in [5, 8): the corners
+    take rows 5-8 of level 3) and anywhere along x."""
+    hot = loc.clone()
+    sel = hot[0, :, 0]
+    y = rows[0] + (rows[1] - rows[0]) * torch.rand(
+        sel[..., 1].shape, generator=gen, device=loc.device)
+    sel[..., 1] = (y + 0.5) / of
+    sel[..., 0] = torch.rand(sel[..., 0].shape, generator=gen,
+                             device=loc.device)
+    return hot
+
+
 def phase_msda_bwd_kernels(torch, cfg, results):
     """occ_msda_bwd against msda_backward_plain at base_occ's SCA and TSA
     shapes, bf16 and f32 values, locations in [-0.2, 1.2] (border samples),
-    random output gradients; dloc and dattn bitwise equal over two launches;
-    each timed in turns against the plain version and held to its bound."""
-    from occnet_tpu_torch.ops import msda
+    random output gradients: every gradient within the tolerance, dloc and
+    dattn bitwise equal over two launches and at B = 2 against two B = 1
+    calls (dvalue within the tolerance); each timed in turns against the
+    plain version, and in bf16 each SCA level alone (step 0's split); then
+    the hot-row case: every sample of camera 0, head 0 inside 4 rows of
+    level 3."""
     m = cfg.model
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(12)
     sca, tsa = m.encoder.sca, m.encoder.tsa
     D = m.embed_dims // sca.num_heads
     cases = [("SCA", m.num_cams, sca.max_queries_per_cam, sca.num_heads,
-              [(116, 200), (58, 100), (29, 50), (15, 25)], sca.num_points),
+              SCA_LEVELS, sca.num_points),
              ("TSA", tsa.num_bev_queue, m.bev_h * m.bev_w, tsa.num_heads,
               [(m.bev_h, m.bev_w)], tsa.num_points)]
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     worst = 0.0
     for name, N, Q, H, shapes, P in cases:
-        L, V = len(shapes), sum(h * w for h, w in shapes)
-        v32 = torch.randn(N, V, H, D, generator=gen, device=dev)
-        loc = torch.rand(N, Q, H, L, P, 2, generator=gen, device=dev
-                         ) * 1.4 - 0.2
-        attn = torch.softmax(torch.randn(N, Q, H, L * P, generator=gen,
-                                         device=dev), -1
-                             ).reshape(N, Q, H, L, P).contiguous()
-        g32 = torch.randn(N, Q, H * D, generator=gen, device=dev)
+        v32, loc, attn, g32 = msda_draw(torch, gen, N, Q, H, D, shapes, P)
         for dtype in (torch.bfloat16, torch.float32):
             v, g = v32.to(dtype), g32.to(dtype)
             tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_F32_TOL
-            got = msda.msda_backward_cuda(v, shapes, loc, attn, g)
-            again = msda.msda_backward_cuda(v, shapes, loc, attn, g)
-            want = msda.msda_backward_plain(v, shapes, loc, attn, g)
-            torch.cuda.synchronize()
             label = (f"msda_bwd {name} value {tuple(v.shape)} {dtype}, "
-                     f"Q={Q}, L={L}, P={P}")
-            worst = max(worst, grads_held(torch, label, got, want, tol,
-                                          ("dvalue", "dloc", "dattn")))
-            same = torch.equal(got[1], again[1]) and torch.equal(got[2],
-                                                                  again[2])
-            rerun = (got[0].float() - again[0].float()).abs().max().item()
-            log(f"    two launches: dloc and dattn bitwise equal {same}; "
-                f"dvalue max|diff| {rerun:.3e} (fp32 atomics)")
-            if not same:
-                raise RuntimeError(f"{label}: dloc / dattn differ between "
-                                   f"two launches")
-            nb = nbytes(v, loc, attn, g, *got)
-            del again, want
-            k, p = in_turns(torch, lambda: msda.msda_backward_cuda(
-                v, shapes, loc, attn, g), lambda: msda.msda_backward_plain(
-                v, shapes, loc, attn, g), 3)
-            b_ms, by = least_time(nb, 0.0)
-            log(f"  msda_bwd {name} {dtype}: kernel {k:.4f} ms, plain "
-                f"{p:.4f} ms; compulsory {nb / 1e6:.1f} MB, bound "
-                f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
+                     f"Q={Q}, L={len(shapes)}, P={P}")
+            err, t, b_ms = msda_bwd_case(torch, label, v, shapes, loc, attn,
+                                         g, tol, batch_split=True)
+            worst = max(worst, err)
             if dtype == torch.bfloat16:
-                tot["ms"] += k
-                tot["plain_ms"] += p
+                tot["ms"] += t["kernel"]
+                tot["plain_ms"] += t["plain"]
                 tot["bound_ms"] += b_ms
-            del got
+                if len(shapes) > 1:
+                    msda_bwd_split(torch, name, v, shapes, loc, attn, g)
+            del v, g
+        if name == "SCA":
+            hot = hot_rows(torch, loc, gen)
+            for dtype in (torch.bfloat16, torch.float32):
+                v, g = v32.to(dtype), g32.to(dtype)
+                tol = BWD_BF16_TOL if dtype == torch.bfloat16 \
+                    else BWD_F32_TOL
+                err, _, _ = msda_bwd_case(
+                    torch, f"msda_bwd SCA, camera 0 head 0 in rows 5-8 of "
+                    f"level 3, {dtype}", v, shapes, hot, attn, g, tol,
+                    plain=False)
+                worst = max(worst, err)
+                del v, g
+            del hot
         del v32, loc, attn, g32
     log(f"  msda_bwd per encoder layer (1 TSA + 1 SCA call, bf16): kernel "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
@@ -2385,66 +2534,169 @@ def phase_msda_bwd_kernels(torch, cfg, results):
                            "library_ms": None}
 
 
-def phase_dcn_bwd_kernels(torch, results):
-    """occ_deform_sample_bwd against deform_sample_backward_plain at the
-    four DCN shapes of R101-DCN (B = 6; stride 1 and the two stride-2 stage
-    entries), bf16 and f32, offsets drawn as phase 12 draws them; doffset
-    and dmask bitwise equal over two launches; timed against the plain
-    version and the bound."""
+def dcn_draw(torch, gen, B, h, w, C, stride, calibrated):
+    """x, offsets, mask U(0, 1) and a columns gradient (fp32) of one DCN
+    layer: phase 12's offsets (N(0, 2^2) px, 1 % at +/-30 px) or, with
+    ``calibrated``, U(-DCN_TRAIN_MAX_PX, DCN_TRAIN_MAX_PX) px."""
     from occnet_tpu_torch.ops import deform_conv as dc
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(13)
-    B = 6
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    worst = 0.0
-    for name, h, w, C, stride, count in DCN_SHAPES:
-        ho, wo = dc.out_size(h, w, stride)
-        x32 = torch.randn(B, h, w, C, generator=gen, device=dev)
+    ho, wo = dc.out_size(h, w, stride)
+    x32 = torch.randn(B, h, w, C, generator=gen, device=dev)
+    if calibrated:
+        off = (torch.rand(B, ho, wo, 9, 2, generator=gen, device=dev) * 2
+               - 1) * DCN_TRAIN_MAX_PX
+    else:
         off = torch.randn(B, ho, wo, 9, 2, generator=gen, device=dev) * 2.0
         far = torch.rand(B, ho, wo, 9, 2, generator=gen, device=dev) < 0.01
         off = torch.where(far, torch.sign(off) * 30.0, off).contiguous()
-        mask = torch.rand(B, ho, wo, 9, generator=gen, device=dev)
-        g32 = torch.randn(B, ho * wo, 9 * C, generator=gen, device=dev)
-        for dtype in (torch.bfloat16, torch.float32):
-            x, g = x32.to(dtype), g32.to(dtype)
-            tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_F32_TOL
-            got = dc.deform_sample_backward_cuda(x, off, mask, g, stride)
-            again = dc.deform_sample_backward_cuda(x, off, mask, g, stride)
-            want = dc.deform_sample_backward_plain(x, off, mask, g, stride)
-            torch.cuda.synchronize()
-            label = (f"dcn_bwd {name} x {tuple(x.shape)} {dtype} stride "
-                     f"{stride}")
-            worst = max(worst, grads_held(torch, label, got, want, tol,
-                                          ("dx", "doffset", "dmask")))
-            same = torch.equal(got[1], again[1]) and torch.equal(got[2],
-                                                                  again[2])
-            rerun = (got[0].float() - again[0].float()).abs().max().item()
-            log(f"    two launches: doffset and dmask bitwise equal {same}; "
-                f"dx max|diff| {rerun:.3e} (fp32 atomics)")
-            if not same:
-                raise RuntimeError(f"{label}: doffset / dmask differ between "
-                                   f"two launches")
-            nb = nbytes(x, off, mask, g, *got)
-            del again, want
-            k, p = in_turns(torch, lambda: dc.deform_sample_backward_cuda(
-                x, off, mask, g, stride),
-                lambda: dc.deform_sample_backward_plain(
-                    x, off, mask, g, stride), 3)
-            b_ms, by = least_time(nb, 0.0)
-            log(f"  dcn_bwd {name} {dtype}: kernel {k:.4f} ms, plain "
-                f"{p:.4f} ms; compulsory {nb / 1e6:.1f} MB, bound "
-                f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
-            if dtype == torch.bfloat16:
-                tot["ms"] += k * count
-                tot["plain_ms"] += p * count
-                tot["bound_ms"] += b_ms * count
-            del got
-        del x32, off, mask, g32
-    log(f"  dcn_bwd per train step (26 launches, bf16): kernel "
-        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
-        f"{tot['bound_ms']:.4f} ms; card {nvidia_smi()}")
+    mask = torch.rand(B, ho, wo, 9, generator=gen, device=dev)
+    g32 = torch.randn(B, ho * wo, 9 * C, generator=gen, device=dev)
+    return x32, off, mask, g32
+
+
+def dcn_bwd_case(torch, label, x, off, mask, g, stride, tol, plain=True,
+                 batch_split=False):
+    """One dcn_bwd case: held to the plain version, doffset and dmask
+    bitwise over two launches (and at B = 2 against two B = 1 calls, and
+    a need_dx=False launch skipping dx with the same doffset and dmask);
+    then timed in turns with the plain version; the share of samples that
+    took the kernel's scatter logged; returns (worst error, times, bound
+    ms)."""
+    from occnet_tpu_torch.ops import deform_conv as dc
+    args = (x, off, mask, g, stride)
+    names = ("dx", "doffset", "dmask")
+    B, h, w, C = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    far = dc.backward_far_share(off, h, w, C, stride, sms)
+    log(f"    {far:.4%} of the samples scattered (far path; the rest "
+        f"gathered)")
+    worst = held_twice(torch, label, dc.deform_sample_backward_cuda,
+                       dc.deform_sample_backward_plain, args, tol, names,
+                       (1, 2))
+    if batch_split:
+        batch_split_held(torch, label, dc.deform_sample_backward_cuda, args,
+                         tol, names, (1, 2))
+        full = dc.deform_sample_backward_cuda(*args)
+        nodx = dc.deform_sample_backward_cuda(*args, need_dx=False)
+        if nodx[0] is not None or not (torch.equal(full[1], nodx[1])
+                                       and torch.equal(full[2], nodx[2])):
+            raise RuntimeError(f"{label}: need_dx=False did not skip dx "
+                               f"alone")
+        log("    need_dx=False: dx None, doffset and dmask bitwise equal")
+        del full, nodx
+    t = bwd_times(torch, dc.deform_sample_backward_cuda,
+                  dc.deform_sample_backward_plain if plain else None, 3, args)
+    # x, offsets, mask, dcols read once; dx, doffset, dmask written once
+    nb = nbytes(x, off, mask, g, x, off, mask)
+    return worst, t, report_times(label, t, nb)
+
+
+def phase_dcn_bwd_kernels(torch, results):
+    """occ_deform_sample_bwd against deform_sample_backward_plain at the
+    four DCN shapes of R101-DCN (B = 6; stride 1 and the two stride-2 stage
+    entries): bf16 and f32 at phase 12's offsets, bf16 at calibrated
+    offsets (|offset| <= DCN_TRAIN_MAX_PX); the checks of `dcn_bwd_case`
+    and its timing (step 0's per-shape split), summed per train step."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(13)
+    B = 6
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    cal = {"ms": 0.0}
+    worst = 0.0
+    for name, h, w, C, stride, count in DCN_SHAPES:
+        for calibrated in (False, True):
+            x32, off, mask, g32 = dcn_draw(torch, gen, B, h, w, C, stride,
+                                           calibrated)
+            draw = "calibrated" if calibrated else "phase 12's"
+            for dtype in ((torch.bfloat16,) if calibrated
+                          else (torch.bfloat16, torch.float32)):
+                x, g = x32.to(dtype), g32.to(dtype)
+                tol = BWD_BF16_TOL if dtype == torch.bfloat16 \
+                    else BWD_F32_TOL
+                label = (f"dcn_bwd {name} x {tuple(x.shape)} {dtype} stride "
+                         f"{stride}, {draw} offsets")
+                err, t, b_ms = dcn_bwd_case(
+                    torch, label, x, off, mask, g, stride, tol,
+                    plain=not calibrated, batch_split=not calibrated)
+                worst = max(worst, err)
+                if dtype == torch.bfloat16:
+                    acc = cal if calibrated else tot
+                    acc["ms"] += t["kernel"] * count
+                    if not calibrated:
+                        tot["plain_ms"] += t["plain"] * count
+                        tot["bound_ms"] += b_ms * count
+                del x, g
+            del x32, off, mask, g32
+    log(f"  dcn_bwd per train step (26 launches, bf16), phase 12's offsets: "
+        f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms; calibrated offsets: kernel "
+        f"{cal['ms']:.4f} ms; card {nvidia_smi()}")
     results["dcn_bwd"] = {"max_abs_err": worst, **tot, "bound_by": "bytes",
-                          "library_ms": None}
+                          "library_ms": None, "ms_calibrated": cal["ms"]}
+
+
+@contextlib.contextmanager
+def captured_backward(store, keys):
+    """Inside the block the MSDA and DCN sampling backward wrappers record
+    into ``store`` the inputs (references, no copies) of the calls named in
+    ``keys``: "SCA" and "TSA" keep the last MSDA call with L > 1 and L = 1,
+    the first encoder layer's (the backward runs the layers in reverse),
+    "layer3_1" the last stride-1 C = 256 DCN call."""
+    from occnet_tpu_torch.ops import deform_conv as dc
+    from occnet_tpu_torch.ops import msda
+    orig_m, orig_d = msda.msda_backward_cuda, dc.deform_sample_backward_cuda
+
+    def m(value, shapes, loc, attn, grad):
+        key = "SCA" if len(shapes) > 1 else "TSA"
+        if key in keys:
+            store[key] = (value, list(shapes), loc, attn, grad)
+        return orig_m(value, shapes, loc, attn, grad)
+
+    def d(x, offset, mask, dcols, stride=1, need_dx=True):
+        if "layer3_1" in keys and stride == 1 and x.shape[-1] == 256:
+            store["layer3_1"] = (x, offset, mask, dcols, stride)
+        return orig_d(x, offset, mask, dcols, stride, need_dx)
+
+    msda.msda_backward_cuda, dc.deform_sample_backward_cuda = m, d
+    try:
+        yield
+    finally:
+        msda.msda_backward_cuda = orig_m
+        dc.deform_sample_backward_cuda = orig_d
+
+
+def bwd_real(torch, name, store, results):
+    """The backward kernels on a real train step's inputs captured by
+    `captured_backward`: a base_occ step's first encoder layer (SCA and TSA,
+    SCA also level by level) and an R101-DCN step's layer3_1, each held to
+    its plain version, the one-writer gradients bitwise over two launches,
+    timed in turns with the plain version; r101_dcn_occ's layer3_1 time
+    goes into the kernels line."""
+    from occnet_tpu_torch.ops.dcn_window import needed_radius
+    if "SCA" in store:
+        for key in ("SCA", "TSA"):
+            v, shapes, loc, attn, g = store[key]
+            inside = ((loc >= 0) & (loc <= 1)).all(-1).float().mean().item()
+            label = (f"msda_bwd on a real {name} step, layer 0 {key}: value "
+                     f"{tuple(v.shape)} {v.dtype}, loc {tuple(loc.shape)}, "
+                     f"{inside:.1%} of samples inside their level")
+            _, t, b_ms = msda_bwd_case(torch, label, v, shapes, loc, attn, g,
+                                       BWD_BF16_TOL)
+            r = results.setdefault("msda_bwd", {})
+            r["ms_real"] = r.get("ms_real", 0.0) + t["kernel"]
+            if len(shapes) > 1:
+                msda_bwd_split(torch, f"real {key}", v, shapes, loc, attn, g)
+    if "layer3_1" in store:
+        x, off, mask, g, stride = store["layer3_1"]
+        ho, wo = off.shape[1:3]
+        label = (f"dcn_bwd on a real {name} step, layer3_1: x "
+                 f"{tuple(x.shape)} {x.dtype}, max|offset| "
+                 f"{off.abs().max().item():.3f} px, needed radius "
+                 f"{int(needed_radius(off, ho, wo))}")
+        _, t, _ = dcn_bwd_case(torch, label, x, off, mask, g, stride,
+                               BWD_BF16_TOL)
+        if name == "r101_dcn_occ":
+            results.setdefault("dcn_bwd", {})["ms_real_layer3_1"] = \
+                t["kernel"]
 
 
 def train_step_parity(torch, label, cfg, sd, batch, trunk_l2=False):
@@ -2574,7 +2826,7 @@ def phase_train_exact_parity(torch):
                                f" != {(want_msda, want_dcn)}")
 
 
-def phase_train_full(torch, name, steps):
+def phase_train_full(torch, name, steps, results):
     """``steps`` timed train steps of the named config at full width (bf16,
     B = 1, config defaults) after one warm-up, through the train CLI's step;
     for R101-DCN the trunk's FrozenBN statistics and the DCN offsets
@@ -2675,7 +2927,13 @@ def phase_train_full(torch, name, steps):
     if launches != want:
         raise RuntimeError(f"{name}: train launch counts {launches} != "
                            f"{want}")
-    prof = device_profile(lambda: step_fn(state, batch))
+    # the profiled step (after the peak is read) keeps its backward kernels'
+    # inputs for `bwd_real`
+    store = {}
+    keys = ({"SCA", "TSA"} if m.encoder.mode == "gather" and not dcn
+            else set()) | ({"layer3_1"} if dcn else set())
+    with captured_backward(store, keys):
+        prof = device_profile(lambda: step_fn(state, batch))
     log(f"  one more step under torch.profiler: device kernels and copies "
         f"{prof['kernel_ms']:.3f} ms summed, card busy {prof['busy_ms']:.3f} "
         f"ms of a {prof['span_ms']:.3f} ms span; backward kernels: msda_bwd "
@@ -2684,6 +2942,9 @@ def phase_train_full(torch, name, steps):
     for k, v in sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {v:9.3f} ms  {k[:100]}")
     del state, batch, step_fn
+    torch.cuda.empty_cache()
+    bwd_real(torch, name, store, results)
+    del store
     torch.cuda.empty_cache()
     return {"msda_bwd": launches["msda_bwd"], "dcn_bwd": launches["dcn_bwd"]}
 
@@ -2781,8 +3042,8 @@ def main():
                                   "r101_dcn_occ")):
         log(f"[{22 + i} train {cfg_name}] full width, bf16, B=1, config "
             f"defaults")
-        for k, n in phase_train_full(torch, cfg_name,
-                                     FULL_TRAIN_STEPS).items():
+        for k, n in phase_train_full(torch, cfg_name, FULL_TRAIN_STEPS,
+                                     results).items():
             bwd[k] += n
     results["msda_bwd"]["launches"] = bwd["msda_bwd"]
     results["dcn_bwd"]["launches"] = bwd["dcn_bwd"]
@@ -2841,7 +3102,7 @@ def main():
              **results["ray_march_fan"]),
         dict(name="msda_bwd", route="cuda",
              source="occnet_tpu_torch/csrc/msda_bwd.cu",
-             replaces="occnet_tpu/ops/msda_pallas.py:366",
+             replaces="occnet_tpu/ops/msda_pallas.py:369",
              **results["msda_bwd"]),
         dict(name="dcn_bwd", route="cuda",
              source="occnet_tpu_torch/csrc/deform_conv_bwd.cu",

@@ -69,16 +69,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from occnet_tpu_torch.ops._build import I32, P, Kernel
+from occnet_tpu_torch.ops._build import I32, I64, P, Kernel
 from occnet_tpu_torch.ops.dcn_window import window_overflow, window_supported
 
 DEFORM = Kernel("occ_deform_sample", [P, P, P, P, I32, I32, I32, I32, I32,
                                       I32, I32, I32, P])
 DEFORM_CONV = Kernel("occ_deform_conv", [P, P, P, P, P, P, I32, I32, I32,
                                          I32, I32, I32, I32, I32, I32, P])
-DEFORM_BWD = Kernel("occ_deform_sample_bwd", [P, P, P, P, P, P, P, I32, I32,
-                                                I32, I32, I32, I32, I32, I32,
-                                                P])
+DEFORM_BWD = Kernel("occ_deform_sample_bwd", [P] * 8 + [I64] + [I32] * 8
+                    + [P])
+# occ_deform_sample_bwd's gather route (deform_conv_bwd.cu): C <= 256, at
+# least 150 output pixels an SM; it gathers the samples with
+# |floor(offset)| <= 4 px both ways
+BWD_GATHER_MAX_C, BWD_GATHER_MIN_PIXELS, BWD_NEAR_PX = 256, 150, 4
 CONV_K_STEP = 32            # input channels of one K step of occ_deform_conv
 CONV_N_TILE = 256           # output channels of one of its blocks
 
@@ -243,8 +246,9 @@ def deform_sample_backward_cuda(x: torch.Tensor, offset: torch.Tensor,
                                            torch.Tensor,
                                            Optional[torch.Tensor]]:
     """`deform_sample_backward_plain` as one launch of
-    `occ_deform_sample_bwd` (dx by fp32 atomics into a zeroed buffer,
-    rounded once to x's dtype; skipped without ``need_dx``)."""
+    `occ_deform_sample_bwd` (dx gathered, or scattered, into an fp32
+    buffer, rounded once to x's dtype, skipped without ``need_dx``; doffset
+    and dmask from the corner dot products it leaves in a workspace)."""
     B, h, w, C = x.shape
     ho, wo = _check(x, offset, mask, stride, 1)
     ins = [x, offset, dcols] + ([] if mask is None else [mask])
@@ -269,17 +273,44 @@ def deform_sample_backward_cuda(x: torch.Tensor, offset: torch.Tensor,
     if C % 4 or x.data_ptr() % 8 or dcols.data_ptr() % 8:
         raise ValueError(f"deform_sample backward kernel: C = {C} must be a "
                          f"multiple of 4, x and dcols 8-byte aligned")
-    dx = (torch.zeros(B, h, w, C, dtype=torch.float32, device=x.device)
+    dx = (torch.empty(B, h, w, C, dtype=torch.float32, device=x.device)
           if need_dx else None)
     doffset = torch.empty_like(offset)
     dmask = None if mask is None else torch.empty_like(mask)
+    # the kernel's workspace: 4 corner dots and a far-list entry a sample,
+    # and the list's count (the C entry refuses a smaller one)
+    ws_ints = 5 * B * ho * wo * TAPS + 1
+    workspace = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
     DEFORM_BWD(x.data_ptr(), offset.data_ptr(),
                None if mask is None else mask.data_ptr(), dcols.data_ptr(),
                None if dx is None else dx.data_ptr(), doffset.data_ptr(),
                None if dmask is None else dmask.data_ptr(),
+               workspace.data_ptr(), 4 * ws_ints,
                int(x.dtype == torch.bfloat16), B, h, w, C, ho, wo, stride,
                torch.cuda.current_stream(x.device).cuda_stream)
     return (None if dx is None else dx.to(x.dtype)), doffset, dmask
+
+
+def backward_far_share(offset: torch.Tensor, h: int, w: int, C: int,
+                       stride: int, sms: int) -> float:
+    """The share of the samples of one `occ_deform_sample_bwd` launch that
+    take its scatter: on the gather route (C <= BWD_GATHER_MAX_C and at
+    least BWD_GATHER_MIN_PIXELS output pixels an SM, of ``sms``) the
+    samples inside the image with |floor(offset)| > BWD_NEAR_PX either
+    way, on the other route every sample inside the image.  The kernel's
+    route and tests mirrored, for reporting only."""
+    B, ho, wo = offset.shape[:3]
+    fl = offset.float().floor()
+    k = torch.arange(TAPS, device=offset.device)
+    oy = torch.arange(ho, device=offset.device).view(ho, 1, 1) * stride
+    ox = torch.arange(wo, device=offset.device).view(1, wo, 1) * stride
+    ry = oy - 1 + k // 3 + fl[..., 0]
+    rx = ox - 1 + k % 3 + fl[..., 1]
+    inside = (ry > -2) & (ry < h) & (rx > -2) & (rx < w)
+    far = inside
+    if C <= BWD_GATHER_MAX_C and B * ho * wo >= BWD_GATHER_MIN_PIXELS * sms:
+        far = inside & (fl.abs() > BWD_NEAR_PX).any(-1)
+    return far.float().mean().item()
 
 
 def deform_conv_plain(x: torch.Tensor, offset: torch.Tensor,

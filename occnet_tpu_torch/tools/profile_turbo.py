@@ -33,7 +33,7 @@ import torch
 
 KERNELS = {"lift": "lift_level_kernel", "tap": "tap_kernel<",
            "msda_bwd": "msda_bwd_kernel",
-           "dcn_bwd": "deform_sample_bwd_kernel"}
+           "dcn_bwd": "deform_sample_bwd_"}
 
 
 def device_profile(fn: Callable[[], object]) -> Dict[str, object]:

@@ -110,6 +110,62 @@ def test_deform_backward_plain_matches_modulated_deform_conv_vjp():
     held(got[2], np.asarray(want[2]), JAX_TOL, "dmask")
 
 
+# the window radius of the served window-DCN layers
+R = 3
+
+
+def halo_case(seed, stride, B=2, C=8):
+    """`dcn_case` with offsets across the served window's edge: every
+    |offset| in [R, R + 2] px, either sign (floor(offset) from +/-3, inside
+    the R = 3 window, to +/-5 outside it), and 1 % at +/-30 px (off the
+    image), on a 12 x 14 output grid."""
+    h, w = 12 * stride, 14 * stride
+    x, _, mask, dcols = dcn_case(seed, B, h, w, C, stride)
+    rng = np.random.RandomState(seed + 1)
+    shape = (B,) + pdc.out_size(h, w, stride) + (9, 2)
+    sign = rng.choice([-1.0, 1.0], size=shape)
+    off = sign * rng.uniform(R, R + 2, size=shape)
+    far = rng.rand(*shape) < 0.01
+    off = np.where(far, sign * 30.0, off).astype(np.float32)
+    return x, off, mask, dcols
+
+
+@pytest.mark.parametrize("stride,ref", [(1, "window"), (1, "modulated"),
+                                        (2, "modulated")])
+def test_deform_backward_plain_halo_offsets_match_jax(stride, ref):
+    """Offsets across the window's edge (`halo_case`) against autograd of
+    the plain forward and against JAX: the window VJP (`_svw_bwd`, at the
+    radius R + 2 that keeps its certificate 0: the +/-30 px samples miss
+    the image) or XLA autodiff of `modulated_deform_conv`."""
+    x, off, mask, dcols = halo_case(50 + stride, stride)
+    B, ho, wo = off.shape[:3]
+    C = x.shape[-1]
+    got = dcn_backward(x, off, mask, dcols, stride)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, off, mask)]
+    cols = pdc.deform_sample_plain(*leaves, stride)
+    auto = torch.autograd.grad(cols, leaves, torch.from_numpy(dcols))
+    for name, g, w in zip(("dx", "doffset", "dmask"), got, auto):
+        held(g, w.numpy(), AUTOGRAD_TOL, f"autograd {name}")
+    if ref == "window":
+        radius = R + 2
+        assert int(window_overflow(torch.from_numpy(off), ho, wo,
+                                   radius)) == 0
+        _, vjp = jax.vjp(
+            lambda a, o, m: jdw._sampled_window_vjp(a, o, m, radius),
+            jnp.asarray(x), jnp.asarray(off.reshape(B, ho, wo, 18)),
+            jnp.asarray(mask))
+        want = vjp(jnp.asarray(dcols.reshape(B, ho * wo, 9, -1)))
+    else:
+        eye = np.eye(9 * C, dtype=np.float32).reshape(3, 3, C, 9 * C)
+        _, vjp = jax.vjp(lambda a, o, m: modulated_deform_conv(
+            a, o, m, jnp.asarray(eye), stride=stride), jnp.asarray(x),
+            jnp.asarray(off.reshape(B, ho, wo, 18)), jnp.asarray(mask))
+        want = vjp(jnp.asarray(dcols.reshape(B, ho, wo, 9 * C)))
+    held(got[0], np.asarray(want[0]), JAX_TOL, "dx")
+    held(got[1], np.asarray(want[1]).reshape(off.shape), JAX_TOL, "doffset")
+    held(got[2], np.asarray(want[2]), JAX_TOL, "dmask")
+
+
 @pytest.mark.parametrize("stride,x_grad", [(1, True), (2, True), (1, False)])
 def test_deform_conv_function_gradients_and_certificate(stride, x_grad):
     """`deform_conv` under autograd on the CPU: y and the certificate as
@@ -184,3 +240,31 @@ def test_dcn_train_step_matches_jax(mode, dcn_mode,
                if "conv_offset" in n and p.grad is not None]
     assert len(offsets) == 18
     assert pdc.DEFORM_BWD.launches == launches     # the CPU never launches
+
+
+@pytest.mark.parametrize("stride,C,sms", [(1, 8, 1), (2, 8, 1),
+                                          (1, 512, 1), (1, 8, 132)])
+def test_backward_far_share_counts_the_scattered_samples(stride, C, sms):
+    """`backward_far_share` against a loop over every sample of
+    `halo_case`'s offsets (|offset| in [3, 5] px across the kernel's 4 px
+    near test, 1 % at +/-30 px): on the gather route (few SMs, C <= 256)
+    the samples inside the image with |floor(offset)| > 4 either way, on
+    the scatter route (C = 512, or fewer than 150 output pixels an SM)
+    every sample inside the image."""
+    _, off, _, _ = halo_case(70 + stride, stride)
+    B, ho, wo = off.shape[:3]
+    h, w = ho * stride, wo * stride
+    gather = C <= pdc.BWD_GATHER_MAX_C and \
+        B * ho * wo >= pdc.BWD_GATHER_MIN_PIXELS * sms
+    far = n = 0
+    for b, oy, ox, k in np.ndindex(B, ho, wo, 9):
+        fy, fx = np.floor(off[b, oy, ox, k])
+        ry = oy * stride - 1 + k // 3 + fy
+        rx = ox * stride - 1 + k % 3 + fx
+        inside = -2 < ry < h and -2 < rx < w
+        near = max(abs(fy), abs(fx)) <= pdc.BWD_NEAR_PX
+        far += inside and not (gather and near)
+        n += 1
+    got = pdc.backward_far_share(torch.from_numpy(off), h, w, C, stride, sms)
+    assert got == pytest.approx(far / n, abs=1e-7)
+    assert 0.0 < got < 1.0

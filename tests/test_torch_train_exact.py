@@ -65,21 +65,23 @@ def held(got, want, tol, name):
 
 
 def msda_case(seed, B=2, H=4, D=8, Q=37, P=6,
-              shapes=((9, 13), (5, 7), (3, 4))):
-    """value, loc, attn and an output gradient.  Locations in [-0.2, 1.2];
-    a third of them pinned to the border band of their level (x or y within
-    0.3 cells of -1, -0.5, n - 1 or n - 0.5), where some corners are
-    outside and the dloc of the others is taken over the valid ones."""
+              shapes=((9, 13), (5, 7), (3, 4)), span=(-0.2, 1.2),
+              pinned=1 / 3):
+    """value, loc, attn and an output gradient.  Locations in ``span``
+    ([-0.2, 1.2]); a share ``pinned`` (a third) of them pinned to the
+    border band of their level (x or y within 0.3 cells of -1, -0.5, n - 1
+    or n - 0.5), where some corners are outside and the dloc of the others
+    is taken over the valid ones."""
     rng = np.random.RandomState(seed)
     L, V = len(shapes), sum(h * w for h, w in shapes)
     value = rng.randn(B, V, H, D).astype(np.float32)
-    loc = rng.uniform(-0.2, 1.2, size=(B, Q, H, L, P, 2))
+    loc = rng.uniform(*span, size=(B, Q, H, L, P, 2))
     ext = np.array([[w, h] for h, w in shapes], np.float64)[:, None, :]
     edge = rng.choice([-1.0, -0.5, 0.0, 1.0], size=loc.shape)
     edge = np.where(edge > 0.5, ext - 0.5, np.where(edge > -0.1, ext - 1.0,
                                                     edge))
     pos = edge + rng.uniform(-0.3, 0.3, size=loc.shape)
-    pin = rng.rand(*loc.shape) < 1 / 3
+    pin = rng.rand(*loc.shape) < pinned
     loc = np.where(pin, (pos + 0.5) / ext, loc).astype(np.float32)
     attn = rng.rand(B, Q, H, L, P).astype(np.float32)
     attn /= attn.sum(axis=(3, 4), keepdims=True)
@@ -93,12 +95,22 @@ def msda_backward(value, shapes, loc, attn, grad):
         torch.from_numpy(attn), torch.from_numpy(grad))]
 
 
+# hot rows: every location inside its level, 256 queries x 8 points on a
+# pyramid whose coarsest levels are 3 x 4 and 2 x 3, so that each coarse
+# cell takes hundreds of corner hits per (batch, head): many additions
+# into one dvalue row, and runs of a query's points on one cell (which
+# the CUDA kernel merges into one addition)
+HOT_ROWS = dict(seed=6, B=1, H=2, D=8, Q=256, P=8,
+                shapes=((6, 8), (3, 4), (2, 3)), span=(0.0, 1.0), pinned=0.0)
+
+
 @pytest.mark.parametrize("kw", [
     dict(seed=0),
     dict(seed=1, B=1, H=2, D=16, Q=50, P=8),                  # SCA-like
     dict(seed=2, B=2, H=8, D=4, Q=30, P=4, shapes=((12, 10),)),   # TSA-like
     dict(seed=3, B=1, H=2, D=8, Q=20, P=2,
          shapes=((6, 8), (3, 4), (2, 2), (1, 2))),            # sub-2-cell
+    HOT_ROWS,
 ])
 def test_msda_backward_plain_matches_autograd(kw):
     value, shapes, loc, attn, grad = msda_case(**kw)
@@ -126,6 +138,31 @@ def test_msda_backward_plain_matches_jax_vjp(impl):
     _, vjp = jax.vjp(lambda v, l, a: fn(v, shapes, l, a), jnp.asarray(value),
                      jnp.asarray(loc), jnp.asarray(attn))
     want = vjp(jnp.asarray(grad))
+    got = msda_backward(value, shapes, loc, attn, grad)
+    for name, g, w in zip(("dvalue", "dloc", "dattn"), got, want):
+        held(g, np.asarray(w), JAX_TOL, f"{impl} {name}")
+
+
+def jax_msda_vjp(impl, value, shapes, loc, attn, grad):
+    """JAX's gradients of the sampling: the VJP of the XLA patch-table
+    form with a query_chunk that pads, or of the Pallas form (forward in
+    interpret mode, backward `msda_pallas._bwd`)."""
+    if impl == "pallas":
+        fn = jmp.multi_scale_deformable_attention_pallas
+    else:
+        def fn(v, s, l, a):
+            return jax_msda(v, s, l, a, query_chunk=16)
+    _, vjp = jax.vjp(lambda v, l, a: fn(v, shapes, l, a), jnp.asarray(value),
+                     jnp.asarray(loc), jnp.asarray(attn))
+    return vjp(jnp.asarray(grad))
+
+
+@pytest.mark.parametrize("impl", ["xla_chunked", "pallas"])
+def test_msda_backward_plain_hot_rows_matches_jax_vjp(impl):
+    """The hot-row case (HOT_ROWS) against both JAX VJPs: hundreds of
+    samples meet on every cell of the coarse levels."""
+    value, shapes, loc, attn, grad = msda_case(**HOT_ROWS)
+    want = jax_msda_vjp(impl, value, shapes, loc, attn, grad)
     got = msda_backward(value, shapes, loc, attn, grad)
     for name, g, w in zip(("dvalue", "dloc", "dattn"), got, want):
         held(g, np.asarray(w), JAX_TOL, f"{impl} {name}")
