@@ -82,11 +82,23 @@ Phases (each raises on failure, so any failure exits nonzero):
               sca_topk_overflow 0
  16. kernels (eval)  pass-2 from a tmp slab (Pallas #7) vs its plain
               version at the bench tool's shapes (one bf16 step), with a
-              dense-hat bmm as the library yardstick; the per-ray DDA on
-              one full-width synthetic scene (6 x 928 x 1600 rays, 420
-              steps) and the fan DDA at the eval shape (2 grids x 8 origins
-              x 360 x 39 rays, 200 x 200 x 16) vs their plain versions
-              (coords and hits bitwise); then the bench tool's entry
+              dense-hat bmm as the library yardstick; the scene render
+              kernel (dda_kernel's render epilogue: one launch for a
+              full-width synthetic scene, 6 x 928 x 1600 views of a
+              200 x 200 x 16 grid, 420 steps) vs render_views_plain (share
+              of differing pixels <= PIXEL_MISMATCH, bitwise expected; two
+              launches bitwise) and its raw epilogue on the same rays
+              (coords and hits bitwise); the eval render kernel
+              (fan_kernel's render epilogue at the eval shape: prediction
+              int64 / bf16 and GT int32 / fp32, 8 origins x 360 x 39 rays)
+              vs fan_render_plain (label and flow bitwise, dist within
+              DIST_RTOL; two launches bitwise; G = 2 equal to two G = 1
+              calls) and its raw epilogue (coords and hits bitwise); each
+              epilogue timed against a bound from its own traffic (the
+              render: scene tables and grid in, views out; the fan render:
+              origins and tables in, dist / label / flow out; the raw
+              ones: rays in, dist / coord / hit out) and this run's steps;
+              then the bench tool's entry
  17. eval parity  synth_tiny_turbo_occ in fp32, card vs CPU: rendered
               views (share of differing pixels <= 1e-3), GT-vs-GT RayIoU 1,
               metric counts of the same grids bitwise, a random-weight
@@ -94,8 +106,9 @@ Phases (each raises on failure, so any failure exits nonzero):
  18. eval turbo_occ  the train CLI in process: 4 full-width bf16 steps on
               4 synthetic scenes rendered on the card, then run_evaluation
               on 8 val scenes (finite RayIoU); GT-vs-GT RayIoU 1 on a val
-              frame, 6 DDA launches a scene, 4 lift + 4 tap + 1 fan
-              launches a frame, a per-frame split by CUDA events
+              frame, 1 render launch a scene (no raw DDA launch), 4 lift +
+              4 tap + 1 fan render launches a frame, the fan tables built
+              once in the run, a per-frame split by CUDA events
  19. kernels (msda backward)  occ_msda_bwd vs msda_backward_plain at
               base_occ's SCA and TSA shapes, bf16 and f32, locations in
               [-0.2, 1.2]: every gradient within BWD_F32_TOL / BWD_BF16_TOL
@@ -1966,7 +1979,7 @@ def compare_marches(torch, name, got, want):
 
 def phase_eval_kernels(torch, cfg, results):
     from occnet_tpu_torch.data import synthetic as syn
-    from occnet_tpu_torch.evaluation.ray_metrics import (fan_parameters,
+    from occnet_tpu_torch.evaluation.ray_metrics import (FAN_TABLES,
                                                          generate_lidar_rays)
     from occnet_tpu_torch.ops import lift_pass2 as lp
     from occnet_tpu_torch.ops import ray_march as rm
@@ -2040,18 +2053,45 @@ def phase_eval_kernels(torch, cfg, results):
     del W_all, T_all, dense, ko, po, p, args
     torch.cuda.empty_cache()
 
-    # per-ray DDA: one full-width synthetic scene through the ring rig
+    # per-ray DDA: one full-width synthetic scene through the ring rig,
+    # the render epilogue (the scene's views, one launch) and the raw one
+    # (dist, coord, hit of the same rays, one launch)
     m = cfg.model
     occ_size = tuple(cfg.data.occ_size)
+    hw = (m.img_h, m.img_w)
     sem, _ = syn.make_scene(0, occ_size)
-    rig = syn.ring_camera_rig(m.num_cams, (m.img_h, m.img_w))
+    rig = syn.ring_camera_rig(m.num_cams, hw)
     vs = (m.pc_range[3] - m.pc_range[0]) / occ_size[0]
-    dirs, o_vox = syn.camera_rays(rig["R"], rig["t"], rig["K"],
-                                  (m.img_h, m.img_w), m.pc_range, vs, dev)
-    occ = torch.from_numpy(sem != syn.FREE_ID).to(dev)
     steps = sum(occ_size) + 4
+    tables = syn.scene_tables(rig["R"], rig["t"], rig["K"],
+                              syn.class_palette(), hw, m.pc_range, vs, dev)
+    labels = syn.class_ids_u8(sem, len(syn.class_palette())).to(dev)
+    rargs = (labels, tables, syn.FREE_ID, steps)
+    views = rm.render_views_cuda(*rargs)
+    again = rm.render_views_cuda(*rargs)
+    want = rm.render_views_plain(*rargs)
+    torch.cuda.synchronize()
+    differ = (views != want).any(-1).float().mean().item()
+    view_err = (views.int() - want.int()).abs().max().item()
+    log(f"  render {tuple(views.shape)} uint8, grid {occ_size}, {steps} "
+        f"steps: share of pixels differing from the plain version "
+        f"{differ:.3e} (tol {PIXEL_MISMATCH}), max |d| {view_err}, bitwise "
+        f"{torch.equal(views, want)}; two launches bitwise equal "
+        f"{torch.equal(views, again)}")
+    if differ > PIXEL_MISMATCH or not torch.equal(views, again):
+        raise RuntimeError("render kernel disagrees with its plain version")
+    del again, want
+    k = [cuda_ms(torch, lambda: rm.render_views_cuda(*rargs), 20)]
+    pl = [cuda_ms(torch, lambda: rm.render_views_plain(*rargs), 1)]
+    pl.append(cuda_ms(torch, lambda: rm.render_views_plain(*rargs), 1))
+    k.append(cuda_ms(torch, lambda: rm.render_views_cuda(*rargs), 20))
+    log(f"    times ms: kernel {k[0]:.4f}, plain {pl[0]:.4f}, plain "
+        f"{pl[1]:.4f}, kernel {k[1]:.4f}")
+    dirs, o_vox = syn.camera_rays(rig["R"], rig["t"], rig["K"], hw,
+                                  m.pc_range, vs, dev)
     R = dirs.shape[1]
     origins = [torch.from_numpy(o).to(dev)[None].expand(R, 3) for o in o_vox]
+    occ = torch.from_numpy(sem != syn.FREE_ID).to(dev)
 
     def scene(fn):
         return lambda: [fn(occ, o, d, steps) for o, d in zip(origins, dirs)]
@@ -2059,26 +2099,42 @@ def phase_eval_kernels(torch, cfg, results):
     got, want = scene(rm.dda_raymarch_cuda)(), scene(rm.dda_raymarch_plain)()
     err = max(compare_marches(torch, f"dda camera {c}", g, w)
               for c, (g, w) in enumerate(zip(got, want)))
-    k, pl = in_turns(torch, scene(rm.dda_raymarch_cuda),
-                     scene(rm.dda_raymarch_plain), 1)
+    raw_k = cuda_ms(torch, scene(rm.dda_raymarch_cuda), 10)
     # steps this run's rays take: the voxels between start and end, + 1
     n_steps = sum(int(((c - torch.floor(o).int()).abs().sum(1) + 1).sum())
                   for (_, c, _), o in zip(got, origins))
-    nb = nbytes(dirs) + occ.numel() + R * m.num_cams * (4 + 12 + 1)
-    b_ms, by = least_time(nb, n_steps * DDA_OPS_PER_STEP)
+    ops = n_steps * DDA_OPS_PER_STEP
+    # each epilogue's own traffic: the render reads the scene tables and the
+    # uint8 grid and writes the views; the raw one reads the directions and
+    # the occupancy and writes dist, coord and hit
+    tab = nbytes(*(getattr(tables, f) for f in ("rot", "origin", "u", "v",
+                                                "tex", "sky", "palette")))
+    b_ms, by = least_time(tab + labels.numel() + views.numel(), ops)
+    raw_b, raw_by = least_time(
+        nbytes(dirs) + occ.numel() + R * m.num_cams * (4 + 12 + 1), ops)
+    k_ms, pl_ms = sum(k) / 2, sum(pl) / 2
     log(f"  dda scene {m.num_cams} x {m.img_h} x {m.img_w} rays, grid "
-        f"{occ_size}, {steps} steps: kernel {k:.4f} ms, plain {pl:.4f} ms; "
-        f"{n_steps / (R * m.num_cams):.1f} steps a ray; bound {b_ms:.4f} ms "
-        f"({by}), kernel at {b_ms / k:.1%} of it")
-    results["ray_march_dda"] = {"max_abs_err": err, "ms": k, "plain_ms": pl,
+        f"{occ_size}, {steps} steps, {n_steps / (R * m.num_cams):.1f} steps "
+        f"a ray: render kernel {k_ms:.4f} ms (one launch: directions, "
+        f"march, shading), plain {pl_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+        f"tables and grid in, views out), render kernel at "
+        f"{b_ms / k_ms:.1%} of it; raw epilogue {raw_k:.4f} ms (6 "
+        f"launches), bound {raw_b:.4f} ms ({raw_by}; rays in, dist / coord "
+        f"/ hit out), at {raw_b / raw_k:.1%} of it")
+    results["ray_march_dda"] = {"max_abs_err": max(err, view_err),
+                                "ms": k_ms, "plain_ms": pl_ms,
                                 "bound_ms": b_ms, "bound_by": by,
-                                "library_ms": None}
-    del got, want, dirs, origins
+                                "library_ms": None, "raw_ms": raw_k,
+                                "raw_bound_ms": raw_b}
+    del got, want, dirs, origins, views
     torch.cuda.empty_cache()
 
-    # fan DDA at the eval shape: prediction and GT grids, 8 origins
+    # fan DDA at the eval shape: prediction and GT grids, 8 origins; the
+    # raw epilogue on packed occupancy, the render epilogue on the labels
+    # and flows as the eval loop hands them over (int64 prediction, bf16
+    # flow; int32 GT, fp32 flow)
     rng = np.random.RandomState(12)
-    gt, _ = syn.make_scene(1, occ_size)
+    gt, gt_flow = syn.make_scene(1, occ_size)
     pred = gt.copy()
     flip = rng.rand(*occ_size) < 0.01
     pred[flip] = rng.randint(0, syn.FREE_ID + 1, int(flip.sum()))
@@ -2087,25 +2143,64 @@ def phase_eval_kernels(torch, cfg, results):
                           rng.uniform(0.5, 2.5, (8, 1))], 1).astype(
         np.float32)
     o_vox = (o_m - np.asarray(m.pc_range[:3], np.float32)) / np.float32(vs)
-    fan = [torch.from_numpy(a).to(dev)
-           for a in fan_parameters(generate_lidar_rays())]
+    fan = FAN_TABLES(generate_lidar_rays(), 360, dev)
     fargs = (occs, torch.from_numpy(o_vox).to(dev), *fan)
     got = rv.dda_raymarch_fan_vec_cuda(*fargs)
     want = rv.dda_raymarch_fan_vec_plain(*fargs)
-    err = compare_marches(torch, f"fan {tuple(got[0].shape)}", got, want)
-    k, pl = in_turns(torch, lambda: rv.dda_raymarch_fan_vec_cuda(*fargs),
-                     lambda: rv.dda_raymarch_fan_vec_plain(*fargs), 5)
+    err = compare_marches(torch, f"fan raw {tuple(got[0].shape)}", got, want)
+    raw_k = cuda_ms(torch, lambda: rv.dda_raymarch_fan_vec_cuda(*fargs), 10)
     v0 = torch.floor(fargs[1][:, :2]).int()[None, :, None, None]
     crossings = int(((got[1][..., :2] - v0).abs().sum(-1) + 1).sum())
-    nb = nbytes(fargs[1], *fan) + occs.shape[0] * occ_size[0] \
-        * occ_size[1] * 4 + got[0].numel() * (4 + 12 + 1)
-    b_ms, by = least_time(nb, crossings * FAN_OPS_PER_CROSSING)
-    log(f"  fan: kernel {k:.4f} ms, plain {pl:.4f} ms; "
-        f"{crossings / got[0].numel():.1f} crossings a ray; bound "
-        f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it")
-    results["ray_march_fan"] = {"max_abs_err": err, "ms": k, "plain_ms": pl,
-                                "bound_ms": b_ms, "bound_by": by,
-                                "library_ms": None}
+    ops = crossings * FAN_OPS_PER_CROSSING
+    raw_b, raw_by = least_time(
+        nbytes(fargs[1], *fan) + occs.shape[0] * occ_size[0] * occ_size[1]
+        * 4 + got[0].numel() * (4 + 12 + 1), ops)
+    n_rays = got[0].numel()
+    del got, want
+    sems = [torch.from_numpy(pred.astype(np.int64)).to(dev),
+            torch.from_numpy(gt).to(dev)]
+    flows = [torch.from_numpy(gt_flow + 0.1 * rng.randn(*gt_flow.shape)).to(
+        dev, torch.bfloat16), torch.from_numpy(gt_flow).to(dev)]
+    rfa = (fargs[1], *fan, cfg.eval.voxel_size, syn.FREE_ID)
+    got = rv.fan_render_cuda(sems, flows, *rfa)
+    again = rv.fan_render_cuda(sems, flows, *rfa)
+    want = rv.fan_render_plain(sems, flows, *rfa)
+    ones = [rv.fan_render_cuda([s], [f], *rfa) for s, f in zip(sems, flows)]
+    torch.cuda.synchronize()
+    same = {k: torch.equal(got[k], want[k]) for k in ("label", "flow")}
+    d_err = (got["dist"] - want["dist"]).abs().max().item()
+    d_rel = ((got["dist"] - want["dist"]).abs()
+             / want["dist"].abs().clamp(min=1e-6)).max().item()
+    twice = all(torch.equal(got[k], again[k]) for k in got)
+    split = all(torch.equal(got[k], torch.cat([o[k] for o in ones]))
+                for k in got)
+    log(f"  fan render {tuple(got['dist'].shape)}: label, flow bitwise "
+        f"equal to the plain version {same}; dist max |d| {d_err:.3e}, max "
+        f"rel {d_rel:.3e} (tol {DIST_RTOL}), bitwise "
+        f"{torch.equal(got['dist'], want['dist'])}; two launches bitwise "
+        f"{twice}; G = 2 equal to two G = 1 calls {split}")
+    if not (all(same.values()) and d_rel <= DIST_RTOL and twice and split):
+        raise RuntimeError("fan render kernel disagrees with its plain "
+                           "version")
+    k, pl = in_turns(torch, lambda: rv.fan_render_cuda(sems, flows, *rfa),
+                     lambda: rv.fan_render_plain(sems, flows, *rfa), 5)
+    # the render's own traffic: origins and fan tables in, the label and
+    # flow of each ray's end voxel, dist / label / flow out (the labels of
+    # the columns walked, which depend on the walk, are left out)
+    ends = sum(n_rays // len(sems) * (s.element_size() + 2 * f.element_size())
+               for s, f in zip(sems, flows))
+    b_ms, by = least_time(nbytes(fargs[1], *fan, got["dist"], got["label"],
+                                 got["flow"]) + ends, ops)
+    log(f"  fan: {crossings / n_rays:.1f} crossings a ray; render kernel "
+        f"{k:.4f} ms (one launch: prediction and GT, pitch-major dist / "
+        f"label / flow), plain {pl:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"render kernel at {b_ms / k:.1%} of it; raw epilogue {raw_k:.4f} "
+        f"ms, bound {raw_b:.4f} ms ({raw_by}), at {raw_b / raw_k:.1%} of it")
+    results["ray_march_fan"] = {"max_abs_err": max(err, d_err), "ms": k,
+                                "plain_ms": pl, "bound_ms": b_ms,
+                                "bound_by": by, "library_ms": None,
+                                "raw_ms": raw_k, "raw_bound_ms": raw_b}
+    del got, again, want, ones, sems, flows, occs
 
     # the bench tool, the path that runs #7
     lp.LIFT_PASS2.launches = 0
@@ -2222,28 +2317,29 @@ def phase_eval_turbo(torch, results):
     import tempfile
     from occnet_tpu_torch.config import turbo_occ
     from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
+    from occnet_tpu_torch.evaluation.ray_metrics import FAN_TABLES
     from occnet_tpu_torch.ops.lift_cuda import LIFT
-    from occnet_tpu_torch.ops.ray_march import DDA
-    from occnet_tpu_torch.ops.ray_march_vec import FAN
+    from occnet_tpu_torch.ops.ray_march import DDA, RENDER
+    from occnet_tpu_torch.ops.ray_march_vec import FAN, FAN_RENDER
     from occnet_tpu_torch.ops.tsa import TAP
     from occnet_tpu_torch.tools import train as cli
     from occnet_tpu_torch.training import eval_loop
     cfg = turbo_occ()
-    DDA.launches = 0
+    RENDER.launches = DDA.launches = 0
     ds = SyntheticOccDataset(cfg.data, cfg.model, 2, seed=0, training=False,
                              device_normalize=True)
-    per_scene = DDA.launches / len(ds)
+    per_scene = RENDER.launches / len(ds)
     iou = gt_ray_iou(torch, cfg, ds.get_sample(0), "cuda")
     log(f"  2 val scenes at {cfg.model.img_h} x {cfg.model.img_w} x "
         f"{cfg.model.num_cams}, grid {tuple(cfg.data.occ_size)}: render ms "
         f"{[round(x, 3) for x in ds.render_ms]} (the first builds nothing: "
-        f"the library is loaded), {per_scene:.0f} DDA launches a scene; "
-        f"GT-vs-GT RayIoU {iou}")
-    if per_scene != cfg.model.num_cams or iou != 1.0:
+        f"the library is loaded), {per_scene:.0f} render launches a scene "
+        f"(raw DDA {DDA.launches}); GT-vs-GT RayIoU {iou}")
+    if per_scene != 1 or DDA.launches or iou != 1.0:
         raise RuntimeError("val scene rendering or GT-vs-GT RayIoU wrong")
     del ds
 
-    kernels = {"lift": LIFT, "tap": TAP, "fan": FAN}
+    kernels = {"lift": LIFT, "tap": TAP, "fan": FAN_RENDER, "fan_raw": FAN}
     frames = []
     orig = eval_loop.run_evaluation
 
@@ -2267,7 +2363,8 @@ def phase_eval_turbo(torch, results):
         return scores
 
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
-    DDA.launches = FAN.launches = 0
+    RENDER.launches = DDA.launches = FAN_RENDER.launches = FAN.launches = 0
+    FAN_TABLES.clear()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eval_loop.run_evaluation = traced
@@ -2285,13 +2382,15 @@ def phase_eval_turbo(torch, results):
     evals = [h for h in history if h.get("tag") == "eval"]
     steps = [h for h in history if "loss" in h]
     want = {"lift": cfg.model.num_feature_levels,
-            "tap": cfg.model.encoder.num_layers, "fan": 1}
+            "tap": cfg.model.encoder.num_layers, "fan": 1, "fan_raw": 0}
     mean = {k: float(np.mean([f[k] for f in frames]))
             for k in ("forward", "render", "counts")}
     log(f"  train CLI: {len(steps)} steps, losses "
         f"{[round(h['loss'], 4) for h in steps]}; {wall:.1f} s in all; "
-        f"peak allocated {peak:.3f} GiB; DDA launches {DDA.launches} "
-        f"(12 scenes), fan launches {FAN.launches}; card {nvidia_smi()}")
+        f"peak allocated {peak:.3f} GiB; render launches {RENDER.launches} "
+        f"(12 scenes; raw DDA {DDA.launches}), fan render launches "
+        f"{FAN_RENDER.launches} (raw {FAN.launches}), fan tables built "
+        f"{FAN_TABLES.builds} time(s); card {nvidia_smi()}")
     log(f"  eval of {len(frames)} frames: scores {evals}")
     log(f"  per frame (CUDA events), mean ms: forward {mean['forward']:.3f}, "
         f"render pred+gt {mean['render']:.3f}, counts {mean['counts']:.3f}; "
@@ -2303,10 +2402,11 @@ def phase_eval_turbo(torch, results):
     if len(steps) != 4 or len(evals) != 1 or len(frames) != 8 \
             or not np.isfinite(evals[0]["RayIoU"]):
         raise RuntimeError(f"train CLI eval run incomplete: {history}")
-    if any(f["launches"] != want for f in frames):
-        raise RuntimeError("eval launch counts per frame are wrong")
-    results["ray_march_dda"]["launches"] = DDA.launches
-    results["ray_march_fan"]["launches"] = FAN.launches
+    if any(f["launches"] != want for f in frames) \
+            or RENDER.launches != 12 or DDA.launches or FAN_TABLES.builds != 1:
+        raise RuntimeError("eval launch counts are wrong")
+    results["ray_march_dda"]["launches"] = RENDER.launches
+    results["ray_march_fan"]["launches"] = FAN_RENDER.launches
 
 
 def grads_held(torch, label, got, want, tol, names):
@@ -3094,11 +3194,22 @@ def main():
              **results["lift_pass2"]),
         dict(name="ray_march_dda", route="cuda",
              source="occnet_tpu_torch/csrc/ray_march.cu",
-             replaces="occnet_tpu/ops/ray_march.py:31",
+             replaces="occnet_tpu/ops/ray_march.py:32,"
+                      "occnet_tpu/data/synthetic.py:165",
+             design="dda_kernel: the whole scene render in one launch "
+                    "(directions, march, shading; a raw epilogue for "
+                    "dda_raymarch), the grid packed into column bitmasks "
+                    "in shared memory, 8 x 4 pixel tiles a warp",
              **results["ray_march_dda"]),
         dict(name="ray_march_fan", route="cuda",
              source="occnet_tpu_torch/csrc/ray_march.cu",
-             replaces="occnet_tpu/ops/ray_march_vec.py:121",
+             replaces="occnet_tpu/ops/ray_march_vec.py:123,"
+                      "occnet_tpu/evaluation/ray_metrics.py:149",
+             design="fan_kernel: prediction and GT of an eval frame in one "
+                    "launch, pitch-major dist / label / flow (a raw "
+                    "epilogue for dda_raymarch_fan_vec); a warp walks an "
+                    "azimuth's columns once for all its rings, 32 "
+                    "crossings a lane each, z-boundary times tabulated",
              **results["ray_march_fan"]),
         dict(name="msda_bwd", route="cuda",
              source="occnet_tpu_torch/csrc/msda_bwd.cu",

@@ -4,7 +4,8 @@ a known projection, so 3-D occupancy is inferable from the images.
 
 Scenes are boxes on a ground plane drawn per seed (`make_scene`, numpy,
 bitwise the JAX package's); views are rendered with the port's per-ray DDA
-(`ops/ray_march.py`, a CUDA kernel on the card): every pixel's colour is the
+(`ops/ray_march.py`, on the card one kernel launch for all cameras of a
+scene, from tables built once per rig): every pixel's colour is the
 palette entry of the first occupied voxel its ray hits, shaded by distance
 and by a per-voxel brightness hash; rays that hit nothing get a sky
 gradient.  The benchmark uses CUBIC voxels so the ray-metric renderers stay
@@ -31,7 +32,8 @@ import torch
 from occnet_tpu_torch.config import (DataConfig, FLOW_CLASS_NAMES,
                                      ModelConfig, OCC_CLASS_NAMES)
 from occnet_tpu_torch.data.pipeline import normalize_img, pad_to_divisor
-from occnet_tpu_torch.ops.ray_march import dda_raymarch, fma
+from occnet_tpu_torch.ops import ray_march
+from occnet_tpu_torch.ops.ray_march import SceneTables, camera_dirs, fma
 
 FREE_ID = len(OCC_CLASS_NAMES) - 1
 
@@ -154,25 +156,72 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+# scene tables on a device, built once per (rig, palette, image size,
+# range, device)
+_TABLES: Dict[tuple, SceneTables] = {}
+
+
+def scene_tables(R: np.ndarray, t: np.ndarray, K: np.ndarray,
+                 palette: np.ndarray, img_hw: Tuple[int, int],
+                 pc_range: Sequence[float], voxel_size: float, device
+                 ) -> SceneTables:
+    """The host-built inputs of `render_views` in float32 on ``device``,
+    built once and kept: pixel centres u = (px + 0.5 - cx) / fx and
+    v = (py + 0.5 - cy) / fy, camera centres in voxel units, the voxel-hash
+    texture 0.85 + 0.15 * (q / 7) and the sky row factor 1 - 0.3 * (row
+    centre) / h, each multiply-add fused as XLA compiles the JAX
+    renderer."""
+    h, w = img_hw
+    key = (np.asarray(R, np.float32).tobytes(),
+           np.asarray(t, np.float32).tobytes(),
+           np.asarray(K, np.float32).tobytes(),
+           np.asarray(palette, np.float32).tobytes(), tuple(img_hw),
+           tuple(float(x) for x in pc_range), float(voxel_size),
+           str(torch.device(device)))
+    tables = _TABLES.get(key)
+    if tables is not None:
+        return tables
+    u = (np.arange(w, dtype=np.float32) + _f32(0.5) - K[0, 2]) / K[0, 0]
+    v = (np.arange(h, dtype=np.float32) + _f32(0.5) - K[1, 2]) / K[1, 1]
+    o_vox = (t - np.asarray(pc_range[:3], np.float32)) / _f32(voxel_size)
+    q = np.arange(8, dtype=np.float32) / _f32(7.0)
+    tex = fma(torch.from_numpy(q), float(_f32(0.15)), float(_f32(0.85)))
+    row = fma(torch.from_numpy(v), float(K[1, 1]), float(K[1, 2])).numpy()
+    sky_row = _f32(1.0) - (_f32(0.3) * row) / _f32(h)
+    sky = np.array([0.53, 0.81, 0.92], np.float32)[None] * sky_row[:, None]
+    tables = SceneTables(
+        rot=torch.from_numpy(np.ascontiguousarray(R, np.float32)),
+        origin=torch.from_numpy(np.ascontiguousarray(o_vox, np.float32)),
+        u=torch.from_numpy(u), v=torch.from_numpy(v), tex=tex,
+        sky=torch.from_numpy(np.ascontiguousarray(sky)),
+        palette=torch.from_numpy(np.ascontiguousarray(palette, np.float32)),
+        voxel_size=float(voxel_size)).to(device)
+    _TABLES[key] = tables
+    return tables
+
+
 def camera_rays(R: np.ndarray, t: np.ndarray, K: np.ndarray,
                 img_hw: Tuple[int, int], pc_range: Sequence[float],
                 voxel_size: float, device) -> Tuple[torch.Tensor, np.ndarray]:
     """Per-pixel ray directions in ego frame (C, H*W, 3) float32 on
-    ``device`` (pixel centres through K, rotated cam -> ego by R^T as three
-    multiply-adds in a fixed order) and camera origins in voxel units
-    (C, 3) float32 numpy."""
-    h, w = img_hw
-    u = (np.arange(w, dtype=np.float32) + _f32(0.5) - K[0, 2]) / K[0, 0]
-    v = (np.arange(h, dtype=np.float32) + _f32(0.5) - K[1, 2]) / K[1, 1]
-    uu = torch.from_numpy(np.ascontiguousarray(
-        np.broadcast_to(u[None], (h, w))).reshape(-1)).to(device)
-    vv = torch.from_numpy(np.ascontiguousarray(
-        np.broadcast_to(v[:, None], (h, w))).reshape(-1)).to(device)
-    dirs = torch.stack([torch.stack(
-        [uu * float(Rc[0, j]) + vv * float(Rc[1, j]) + float(Rc[2, j])
-         for j in range(3)], dim=-1) for Rc in R])
-    o_vox = (t - np.asarray(pc_range[:3], np.float32)) / _f32(voxel_size)
-    return dirs, o_vox
+    ``device`` (`ops.ray_march.camera_dirs` of the scene tables) and camera
+    origins in voxel units (C, 3) float32 numpy: the rays `render_views`
+    marches."""
+    tables = scene_tables(R, t, K, class_palette(), img_hw, pc_range,
+                          voxel_size, device)
+    dirs = torch.stack([camera_dirs(tables, c) for c in range(len(R))])
+    return dirs, tables.origin.cpu().numpy()
+
+
+def class_ids_u8(sem: np.ndarray, n_cls: int) -> torch.Tensor:
+    """The class ids of ``sem`` as a uint8 tensor (the render kernel's label
+    type) after checking them on the host: each in [0, n_cls), so that the
+    kernel's palette lookup stays inside the palette."""
+    lo, hi = int(sem.min()), int(sem.max())
+    if lo < 0 or hi >= n_cls:
+        raise ValueError(f"class ids must lie in [0, {n_cls}), got "
+                         f"[{lo}, {hi}]")
+    return torch.from_numpy(sem.astype(np.uint8))
 
 
 def render_views(sem: torch.Tensor, R: np.ndarray, t: np.ndarray,
@@ -180,48 +229,25 @@ def render_views(sem: torch.Tensor, R: np.ndarray, t: np.ndarray,
                  pc_range: Sequence[float], max_steps: int = 160
                  ) -> torch.Tensor:
     """Render (C, H, W, 3) uint8 camera views of a semantic voxel grid
-    ``sem`` (X, Y, Z) by DDA ray casting, one march per camera, on the
-    grid's device (CUBIC voxels assumed: the pc_range x-extent / X must
-    equal the z voxel size).  Pixels whose ray never hits geometry get a
-    sky gradient."""
-    dev = sem.device
-    h, w = img_hw
-    X = sem.shape[0]
-    vs = (pc_range[3] - pc_range[0]) / X
-    occ = sem != FREE_ID
-    dirs, o_vox = camera_rays(R, t, K, img_hw, pc_range, vs, dev)
-    pal = torch.from_numpy(palette).to(dev)
-    # per-voxel texture 0.85 + 0.15 * (hash / 7) and the per-row sky
-    # factor 1 - 0.3 * (row centre) / h, in float32 on the host, each
-    # multiply-add fused as XLA compiles the JAX renderer
-    q = np.arange(8, dtype=np.float32) / _f32(7.0)
-    tex_lut = fma(torch.from_numpy(q), float(_f32(0.15)),
-                  float(_f32(0.85))).to(dev)
-    v = (np.arange(h, dtype=np.float32) + _f32(0.5) - K[1, 2]) / K[1, 1]
-    row = fma(torch.from_numpy(v), float(K[1, 1]), float(K[1, 2])).numpy()
-    sky_row = _f32(1.0) - (_f32(0.3) * row) / _f32(h)
-    sky = torch.from_numpy(np.array([0.53, 0.81, 0.92], np.float32)[None]
-                           * sky_row[:, None]).to(dev)       # (h, 3)
-    sky = sky[:, None].expand(h, w, 3).reshape(-1, 3)
-    sem_flat = sem.reshape(-1)
-    Y, Z = sem.shape[1], sem.shape[2]
-    views = []
-    for c in range(len(R)):
-        origin = torch.from_numpy(o_vox[c]).to(dev)[None].expand(h * w, 3)
-        dist, coord, hit = dda_raymarch(occ, origin, dirs[c], max_steps)
-        coord = coord.long()
-        label = sem_flat[(coord[:, 0] * Y + coord[:, 1]) * Z + coord[:, 2]]
-        dist_m = dist * vs
-        # a tensor divisor: CUDA multiplies by the reciprocal of a scalar
-        e = torch.exp(-dist_m / torch.full_like(dist_m, 25.0))
-        shade = fma(e, float(_f32(0.65)), float(_f32(0.35)))
-        tex = tex_lut[(coord[:, 0] * 7 + coord[:, 1] * 13
-                       + coord[:, 2] * 3) % 8]
-        color = pal[label] * (shade * tex)[:, None]
-        img = torch.where(hit[:, None], color, sky)
-        views.append(torch.clamp(img * 255.0, 0, 255).to(torch.uint8)
-                     .reshape(h, w, 3))
-    return torch.stack(views)
+    ``sem`` (X, Y, Z) by DDA ray casting on the grid's device: one kernel
+    launch for all cameras on the card (`ops.ray_march.render_views`),
+    CUBIC voxels assumed (the pc_range x-extent / X must equal the z voxel
+    size).  Pixels whose ray never hits geometry get a sky gradient.  On
+    the card ``sem`` holds uint8 class ids (`class_ids_u8`)."""
+    vs = (pc_range[3] - pc_range[0]) / sem.shape[0]
+    tables = scene_tables(R, t, K, palette, img_hw, pc_range, vs, sem.device)
+    return ray_march.render_views(sem, tables, FREE_ID, max_steps)
+
+
+def _to_host(views: torch.Tensor) -> np.ndarray:
+    """The views as a numpy array of their own; from the card through a
+    pinned buffer (one DMA, then a host copy), which is quicker than a copy
+    to pageable memory."""
+    if not views.is_cuda:
+        return views.numpy()
+    host = torch.empty(views.shape, dtype=views.dtype, pin_memory=True)
+    host.copy_(views)
+    return host.numpy().copy()
 
 
 class SyntheticOccDataset:
@@ -292,10 +318,12 @@ class SyntheticOccDataset:
             for i in range(n_samples):
                 sem, flow = make_scene(seed + i, occ_size, num_boxes)
                 t0 = time.perf_counter()
-                imgs = render_views(
-                    torch.from_numpy(sem).to(dev), rig_low["R"],
-                    rig_low["t"], rig_low["K"], palette, low_hw, pc_range,
-                    max_steps).cpu().numpy()
+                # class ids as uint8: a quarter of the int32 copy, and the
+                # kernel's own label type
+                imgs = _to_host(render_views(
+                    class_ids_u8(sem, len(palette)).to(dev),
+                    rig_low["R"], rig_low["t"], rig_low["K"], palette,
+                    low_hw, pc_range, max_steps))
                 self.render_ms.append((time.perf_counter() - t0) * 1e3)
                 if render_scale > 1:
                     imgs = imgs.repeat(render_scale, axis=1).repeat(

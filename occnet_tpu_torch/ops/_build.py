@@ -145,3 +145,4 @@ class Kernel:
 P = ctypes.c_void_p          # device pointers and the cudaStream_t
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float

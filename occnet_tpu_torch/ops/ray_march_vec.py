@@ -1,6 +1,9 @@
 """Fan DDA of the evaluation path (port of `occnet_tpu/ops/ray_march_vec.py`
-and of `pack_columns` from `ray_march_fast.py`): the CUDA kernel
-(`csrc/ray_march.cu`, `fan_kernel`) and its plain PyTorch version.
+and of `pack_columns` from `ray_march_fast.py`) and the eval frame's render
+built on it (port of `_render_grids_impl`, jitted whole in
+`occnet_tpu/evaluation/ray_metrics.py`): the CUDA kernel
+(`csrc/ray_march.cu`, `fan_kernel`, one template with a raw and a render
+epilogue) and the plain PyTorch versions.
 
 The simulated LiDAR fan is A azimuths x K pitch rings from each of T
 origins.  All rings of one azimuth share the xy-column walk, whose crossing
@@ -16,27 +19,54 @@ crossing; a ray that never enters returns zeros.  The caps
 eval marcher differs from an exact DDA on steep rays) and are copied, not
 fixed.
 
-The plain version transliterates the JAX program (a stable sort of the
-crossing keys, cumulative sums, first-True argmax over the crossings); the
-kernel is one thread per (grid, origin, azimuth, pitch ring) walking the
-merge with two counters and stopping at its hit, with the same results.
-`dda_raymarch_fan_vec` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors; it never falls back from one to the other.
+`dda_raymarch_fan_vec` returns the raw (G, T, A, K) form.  `fan_render`
+marches G <= 2 label grids (prediction and ground truth) and returns the
+render dict's pitch-major (G, T, K * A) distance in metres, label and flow.
+The plain versions transliterate the JAX program (a stable sort of the
+crossing keys, cumulative sums, first-True argmax over the crossings) and
+the transpose and gathers around it; the kernel walks each (grid, origin,
+azimuth) column sequence once for all its rings, with the same results.
+Each entry point launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-from occnet_tpu_torch.ops._build import I32, P, Kernel
+from occnet_tpu_torch.ops._build import F32, I32, P, Kernel
 from occnet_tpu_torch.ops.ray_march import fma
 
 _BIG = 1e30
 
 FAN = Kernel("occ_fan_raymarch", [P, P, P, P, P, P, P, P, I32, I32, I32,
                                   I32, I32, I32, I32, I32, I32, P])
+FAN_RENDER = Kernel("occ_fan_render", [P, P, I32, I32, P, P, I32, I32, I32,
+                                       P, P, P, P, P, P, P, I32, I32, I32,
+                                       I32, I32, I32, I32, I32, I32, F32, P])
+
+MAX_RINGS = 64           # two pitch rings a lane of the kernel's warp
+
+
+def _check_fan(who: str, Z: int, T: int, K: int, max_z_sub: int) -> None:
+    """The shapes the fan kernel takes (one bitmask a column, two rings a
+    lane, one block row an origin)."""
+    if not 1 <= Z <= 32 or not 1 <= K <= MAX_RINGS \
+            or not 1 <= max_z_sub <= 32 or not 1 <= T <= 65535:
+        raise ValueError(f"{who}: needs Z <= 32, K <= {MAX_RINGS}, "
+                         f"max_z_sub in [1, 32], T <= 65535; got Z={Z}, "
+                         f"K={K}, max_z_sub={max_z_sub}, T={T}")
+
+
+def _check_f32(who: str, dev, checks) -> None:
+    for t, shape in checks:
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{who}: expected contiguous float32 {shape} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
 
 
 def pack_columns(occ: torch.Tensor) -> torch.Tensor:
@@ -205,23 +235,17 @@ def dda_raymarch_fan_vec_plain(occs, origins, az_dirs, pitch_dz, pitch_scale,
 
 def dda_raymarch_fan_vec_cuda(occs, origins, az_dirs, pitch_dz, pitch_scale,
                               max_xy_steps: int = 420, max_z_sub: int = 4):
-    """`dda_raymarch_fan_vec_plain` as one launch of the CUDA kernel."""
+    """`dda_raymarch_fan_vec_plain` as one launch of the CUDA kernel (raw
+    epilogue)."""
+    G, X, Y, Z = occs.shape
+    T, A, K = origins.shape[0], az_dirs.shape[0], pitch_dz.shape[0]
+    _check_fan("fan kernel", Z, T, K, max_z_sub)
     dev = occs.device
     if dev.type != "cuda":
         raise ValueError(f"fan kernel: tensors must be on a CUDA device, "
                          f"got {dev}")
-    G, X, Y, Z = occs.shape
-    T, A, K = origins.shape[0], az_dirs.shape[0], pitch_dz.shape[0]
-    checks = [(origins, (T, 3)), (az_dirs, (A, 2)), (pitch_dz, (K,)),
-              (pitch_scale, (K,))]
-    for t, shape in checks:
-        if t.device != dev or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"fan kernel: expected contiguous float32 "
-                             f"{shape} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if Z > 32 or max_z_sub < 1:
-        raise ValueError(f"fan kernel: Z={Z} must be <= 32, max_z_sub >= 1")
+    _check_f32("fan kernel", dev, [(origins, (T, 3)), (az_dirs, (A, 2)),
+                                   (pitch_dz, (K,)), (pitch_scale, (K,))])
     cols = pack_columns(occs).contiguous()
     dist = torch.empty(G, T, A, K, dtype=torch.float32, device=dev)
     coord = torch.empty(G, T, A, K, 3, dtype=torch.int32, device=dev)
@@ -247,3 +271,96 @@ def dda_raymarch_fan_vec(occs, origins, az_dirs, pitch_dz, pitch_scale,
                                           pitch_scale, max_xy_steps,
                                           max_z_sub)
     raise ValueError(f"fan march: no implementation for {occs.device}")
+
+
+Rendered = Dict[str, torch.Tensor]
+_LABEL_TYPES = (torch.uint8, torch.int32, torch.int64)
+_FLOW_TYPES = (torch.float32, torch.bfloat16)
+
+
+def fan_render_plain(sems: Sequence[torch.Tensor],
+                     flows: Sequence[torch.Tensor], origins, az_dirs,
+                     pitch_dz, pitch_scale, voxel_size: float, free_id: int,
+                     max_xy_steps: int = 420, max_z_sub: int = 4
+                     ) -> Rendered:
+    """G label grids (X, Y, Z) and flows (X, Y, Z, 2) along the fan from T
+    origins (voxel units): `dda_raymarch_fan_vec_plain` of their occupancy,
+    then pitch-major (G, T, K * A) ``dist`` in metres, ``label`` (int32) and
+    ``flow`` (float32) of each ray's voxel."""
+    occs = torch.stack([s != free_id for s in sems])
+    dist, coord, _ = dda_raymarch_fan_vec_plain(
+        occs, origins, az_dirs, pitch_dz, pitch_scale, max_xy_steps,
+        max_z_sub)
+    G, T, A, K = dist.shape
+    X, Y, Z = sems[0].shape
+    # (G, T, A, K) -> pitch-major (G, T, K * A)
+    dist = dist.transpose(2, 3).reshape(G, T, K * A) * voxel_size
+    coord = coord.transpose(2, 3).reshape(G, T, K * A, 3).long()
+    flat = (coord[..., 0] * Y + coord[..., 1]) * Z + coord[..., 2]
+    label = torch.stack([s.reshape(-1)[flat[g]]
+                         for g, s in enumerate(sems)]).to(torch.int32)
+    flow = torch.stack([f.reshape(-1, 2)[flat[g]].float()
+                        for g, f in enumerate(flows)])
+    return {"dist": dist, "label": label, "flow": flow}
+
+
+def fan_render_cuda(sems: Sequence[torch.Tensor],
+                    flows: Sequence[torch.Tensor], origins, az_dirs,
+                    pitch_dz, pitch_scale, voxel_size: float, free_id: int,
+                    max_xy_steps: int = 420, max_z_sub: int = 4
+                    ) -> Rendered:
+    """`fan_render_plain` as one launch of the CUDA kernel (render
+    epilogue): G <= 2 grids, labels uint8 / int32 / int64 and flows float32
+    / bfloat16, each grid its own type."""
+    G = len(sems)
+    if not 1 <= G <= 2 or len(flows) != G:
+        raise ValueError(f"fan render kernel: takes 1 or 2 grids with a "
+                         f"flow each, got {G} grids, {len(flows)} flows")
+    X, Y, Z = sems[0].shape
+    T, A, K = origins.shape[0], az_dirs.shape[0], pitch_dz.shape[0]
+    _check_fan("fan render kernel", Z, T, K, max_z_sub)
+    dev = sems[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fan render kernel: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    for s, f in zip(sems, flows):
+        if s.device != dev or s.dtype not in _LABEL_TYPES \
+                or tuple(s.shape) != (X, Y, Z) or not s.is_contiguous() \
+                or f.device != dev or f.dtype not in _FLOW_TYPES \
+                or tuple(f.shape) != (X, Y, Z, 2) or not f.is_contiguous():
+            raise ValueError(
+                f"fan render kernel: expected contiguous labels {(X, Y, Z)} "
+                f"of {_LABEL_TYPES} and flows {(X, Y, Z, 2)} of "
+                f"{_FLOW_TYPES} on {dev}, got {s.dtype} {tuple(s.shape)} / "
+                f"{f.dtype} {tuple(f.shape)} on {s.device} / {f.device}")
+    _check_f32("fan render kernel", dev,
+               [(origins, (T, 3)), (az_dirs, (A, 2)), (pitch_dz, (K,)),
+                (pitch_scale, (K,))])
+    dist = torch.empty(G, T, K * A, dtype=torch.float32, device=dev)
+    label = torch.empty(G, T, K * A, dtype=torch.int32, device=dev)
+    flow = torch.empty(G, T, K * A, 2, dtype=torch.float32, device=dev)
+    grids = []
+    for g in (0, min(1, G - 1)):
+        grids += [sems[g].data_ptr(), flows[g].data_ptr(),
+                  sems[g].element_size(), flows[g].element_size()]
+    FAN_RENDER(*grids, free_id, origins.data_ptr(), az_dirs.data_ptr(),
+               pitch_dz.data_ptr(), pitch_scale.data_ptr(), dist.data_ptr(),
+               label.data_ptr(), flow.data_ptr(), G, T, A, K, X, Y, Z,
+               max_xy_steps, max_z_sub, voxel_size,
+               torch.cuda.current_stream(dev).cuda_stream)
+    return {"dist": dist, "label": label, "flow": flow}
+
+
+def fan_render(sems: Sequence[torch.Tensor], flows: Sequence[torch.Tensor],
+               origins, az_dirs, pitch_dz, pitch_scale, voxel_size: float,
+               free_id: int, max_xy_steps: int = 420, max_z_sub: int = 4
+               ) -> Rendered:
+    """The render dict of G grids along the fan: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    args = (sems, flows, origins, az_dirs, pitch_dz, pitch_scale,
+            voxel_size, free_id, max_xy_steps, max_z_sub)
+    if sems[0].is_cuda:
+        return fan_render_cuda(*args)
+    if sems[0].device.type == "cpu":
+        return fan_render_plain(*args)
+    raise ValueError(f"fan render: no implementation for {sems[0].device}")

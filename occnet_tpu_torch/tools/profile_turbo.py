@@ -36,9 +36,15 @@ KERNELS = {"lift": "lift_level_kernel", "tap": "tap_kernel<",
            "dcn_bwd": "deform_sample_bwd_"}
 
 
-def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
+def device_profile(fn: Callable[[], object],
+                   groups: Optional[Dict[str, Sequence[str]]] = None
+                   ) -> Dict[str, object]:
     """ms of device activity in one call of ``fn`` (see the module doc),
-    plus ``by_name``: the ms of each kernel or copy name."""
+    plus ``by_name`` / ``n_by_name``: the ms and count of each kernel or
+    copy name.  ``groups`` (name -> substrings of event names) adds
+    ``{group}_ms`` and ``{group}_n`` for the events whose name holds one of
+    the group's substrings, the first group matching taking each event, and
+    ``other_ms`` / ``other_n`` for the events no group takes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -61,10 +67,23 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
         out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start
                                for e in events if name in e.name) / 1e3
     by_name: Dict[str, float] = {}
+    n_by_name: Dict[str, int] = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
+        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
     out["by_name"] = by_name
+    out["n_by_name"] = n_by_name
+    if groups is not None:
+        taken = {g: [0.0, 0] for g in [*groups, "other"]}
+        for name, ms in by_name.items():
+            g = next((g for g, subs in groups.items()
+                      if any(sub in name for sub in subs)), "other")
+            taken[g][0] += ms
+            taken[g][1] += n_by_name[name]
+        for g, (ms, n) in taken.items():
+            out[f"{g}_ms"] = ms
+            out[f"{g}_n"] = n
     return out
 
 

@@ -6,8 +6,10 @@ train CLI calls it between epochs (the reference's eval hook).
 Inference goes through a `serve.Predictor`, so a nonzero certificate
 (`sca_topk_overflow`, `dcn_window_overflow`) raises here as in serving; the
 training model is evaluated through `Predictor.wrap`, without a copy of its
-weights.  Sample loading runs on a prefetch thread, and each frame's counts
-stay on the device until they are fetched in bulk every ``FLUSH`` frames.
+weights.  Sample loading runs on a prefetch thread, the ground truth is
+copied to the card from pinned memory without waiting for the forward, and
+each frame's counts stay on the device until they are fetched in bulk every
+``FLUSH`` frames.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from occnet_tpu_torch.evaluation.ego_pose import (extract_ego_origins,
@@ -64,10 +67,16 @@ def run_evaluation(cfg, predictor, dataset, max_samples: Optional[int] = None,
                 mark("forward")
             padded, valid = pad_origins(origins_by_token[s["token"]],
                                         cfg.eval.max_origins)
+            host = [torch.from_numpy(np.ascontiguousarray(s[k]))
+                    for k in ("voxel_semantics", "voxel_flow")]
+            if dev.type == "cuda":
+                # pinned here, while the forward runs: the copies then do
+                # not wait for it (pinned on the prefetch thread, the
+                # forward's launches slowed)
+                host = [t.pin_memory() for t in host]
             pred, gt = render_pred_gt(
-                occ_cls[0], flow[0],
-                torch.from_numpy(s["voxel_semantics"]).to(dev),
-                torch.from_numpy(s["voxel_flow"]).to(dev), rays, padded,
+                occ_cls[0], flow[0], *(t.to(dev, non_blocking=True)
+                                       for t in host), rays, padded,
                 valid, voxel_size=cfg.eval.voxel_size,
                 pc_range=tuple(cfg.eval.pc_range))
             if mark:

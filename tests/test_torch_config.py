@@ -77,7 +77,7 @@ def test_port_modules_import_without_the_jax_package():
         "evaluation", "evaluation.ray_metrics", "evaluation.ego_pose",
         "data.quat", "data.synthetic", "data.loader", "data.sampler",
         "training.eval_loop", "tools.bench_lift_passes",
-        "tools.synth_learn")} <= mods, r.stdout
+        "tools.bench_ray_march", "tools.synth_learn")} <= mods, r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
