@@ -145,6 +145,34 @@ Phases (each raises on failure, so any failure exits nonzero):
               first encoder layer's SCA, level by level too, and TSA;
               R101-DCN: layer3_1 with its scattered share), held and
               timed as in 19 / 20
+ 25. data base_occ  a 4-frame, 2-scene nuScenes-layout data root (the
+              six committed 900 x 1600 JPEGs of
+              occnet_tpu_torch/data/fixtures/, the ring rig, labels.npz with
+              ~1 % occupied voxels and flow, infos pkls): the port's JPEG
+              decoder gives the fixtures' tf.io.decode_jpeg digests; a
+              reference BEVFormerOcc .pth fabricated from the port's init
+              converts back to it bit for bit; the test CLI (--torch-
+              checkpoint --eval --format-only) on base_occ: auto top-K per
+              camera, certificate 0, msda 4 layers x (1 + K groups) and the
+              fan render kernel twice a frame (eval + submission), finite
+              RayIoU and point clouds (mAVE / OccScore are NaN when no
+              flow-class ray is a true positive, the reference's
+              semantics), a per-frame split (host load, forward, render,
+              counts); then ray_casting + metric: GT vs GT RayIoU and
+              OccScore 1, the metric CLI equal to score_submissions, the
+              CLI's submission equal to ray_casting's point clouds
+ 26. data turbo_r101_dcn_occ  the test CLI with the window-DCN radius
+              probe on weights calibrated on the first frame: the probed
+              per-layer radii equal each layer's needed_radius computed
+              apart (0 off the window kernel), certificate 0 on every
+              frame, 26 fused DCN + 4 lift + 4 tap launches a request (the
+              probe is one more), one fan render a frame
+ 27. data train  the train CLI on the data root: turbo_occ, full width,
+              B = 1, 2 steps with a torchvision-layout ResNet-50
+              (--backbone-checkpoint; conv1 kept bit for bit, frozen) and
+              the eval hook on 2 val frames: finite losses, lift / tap
+              forward and backward launches, the checkpoint written and one
+              more step resumed from it
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -155,6 +183,7 @@ Needs no network and no JAX.
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3049,6 +3078,530 @@ def phase_train_full(torch, name, steps, results):
     return {"msda_bwd": launches["msda_bwd"], "dcn_bwd": launches["dcn_bwd"]}
 
 
+# --- phases 25-27: nuScenes-layout data, reference checkpoints, the CLIs ---
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "occnet_tpu_torch", "data", "fixtures")
+MINISET_FRAMES = 4       # frames of the data root, two scenes
+# the cameras of a nuScenes infos entry, in the order of data.nuscenes
+NUSC_CAMS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK",
+             "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+
+
+def write_miniset(root):
+    """A nuScenes / OpenOcc-layout data root with the layout of
+    tests/test_cli.py's `_write_miniset`: MINISET_FRAMES frames in two
+    scenes on the ring rig (each camera i yawed 2*pi*i/6, focal w/2), a
+    per-frame ego yaw, the six committed 900 x 1600 camera JPEGs of
+    occnet_tpu_torch/data/fixtures/ for every frame, labels.npz with ~1 %
+    occupied voxels (random classes, flow on half of them) and three infos
+    pkls: infos_val.pkl (every frame), infos_train.pkl (the first scene)
+    and infos_val2.pkl (the first two frames)."""
+    import pickle
+    import shutil
+    h, w = 900, 1600
+    os.makedirs(os.path.join(root, "imgs"))
+    for ci, name in enumerate(NUSC_CAMS):
+        shutil.copy(os.path.join(FIXTURES, f"cam{ci}.jpg"),
+                    os.path.join(root, "imgs", f"{name}.jpg"))
+    rng = np.random.RandomState(0)
+    base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    per_scene = MINISET_FRAMES // 2
+    infos = []
+    for fi in range(MINISET_FRAMES):
+        token, scene = f"tok{fi}", f"scene-{fi // per_scene + 1:04d}"
+        yaw = 0.05 * (fi % per_scene)
+        cams = {}
+        for ci, name in enumerate(NUSC_CAMS):
+            a = 2 * np.pi * ci / 6
+            rz = np.array([[np.cos(a), -np.sin(a), 0],
+                           [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+            cams[name] = {
+                "data_path": f"imgs/{name}.jpg",
+                "cam_intrinsic": np.array([[w / 2.0, 0, w / 2],
+                                           [0, w / 2.0, h / 2], [0, 0, 1]]),
+                "sensor2lidar_rotation": rz @ base,
+                "sensor2lidar_translation": np.array([1.0, 0.0, 1.5])}
+        occ_rel = f"openocc_v2/{scene}/{token}/labels.npz"
+        os.makedirs(os.path.dirname(os.path.join(root, occ_rel)))
+        sem = np.full((200, 200, 16), 16, np.uint8)
+        occ = rng.rand(200, 200, 16) < 0.01
+        sem[occ] = rng.randint(0, 16, int(occ.sum()))
+        flow = np.zeros((200, 200, 16, 2), np.float16)
+        moving = occ & (rng.rand(200, 200, 16) < 0.5)
+        flow[moving] = rng.randn(int(moving.sum()), 2)
+        np.savez_compressed(os.path.join(root, occ_rel), semantics=sem,
+                            flow=flow)
+        infos.append({
+            "token": token, "cams": cams,
+            "lidar2ego_translation": [0.94, 0.0, 1.84],
+            "lidar2ego_rotation": [1.0, 0.0, 0.0, 0.0],
+            "ego2global_translation": [100.0 + 2.0 * fi, 50.0, 0.0],
+            "ego2global_rotation": [np.cos(yaw / 2), 0.0, 0.0,
+                                    np.sin(yaw / 2)],
+            "occ_path": occ_rel, "scene_token": scene, "timestamp": fi})
+    for name, sel in (("infos_val.pkl", infos),
+                      ("infos_train.pkl", infos[:per_scene]),
+                      ("infos_val2.pkl", infos[:2])):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({"infos": sel, "metadata": {"version": "v1.0-mini"}},
+                        f)
+
+
+def torchvision_resnet(params, stats, depth, prefix=""):
+    """A JAX-layout ResNet subtree (no DCN) in torchvision's names and
+    layouts, conv1 back in BGR input order: the inverse of
+    `utils.torch_convert.convert_torchvision_resnet`."""
+    from occnet_tpu_torch.models.resnet import STAGE_BLOCKS
+    sd = {}
+
+    def conv(src, dst):
+        sd[f"{prefix}{dst}.weight"] = np.transpose(src["kernel"],
+                                                   (3, 2, 0, 1))
+
+    def bn(p, st, dst):
+        for a, b in (("weight", p["scale"]), ("bias", p["bias"]),
+                     ("running_mean", st["mean"]),
+                     ("running_var", st["var"])):
+            sd[f"{prefix}{dst}.{a}"] = b
+
+    conv({"kernel": params["conv1"]["kernel"][:, :, ::-1, :]}, "conv1")
+    bn(params["bn1"], stats["bn1"], "bn1")
+    for stage, n in enumerate(STAGE_BLOCKS[depth]):
+        for b in range(n):
+            p, st = params[f"layer{stage + 1}_{b}"], \
+                stats[f"layer{stage + 1}_{b}"]
+            dst = f"layer{stage + 1}.{b}"
+            for ci in (1, 2, 3):
+                conv(p[f"conv{ci}"], f"{dst}.conv{ci}")
+                bn(p[f"bn{ci}"], st[f"bn{ci}"], f"{dst}.bn{ci}")
+            if "downsample_conv" in p:
+                conv(p["downsample_conv"], f"{dst}.downsample.0")
+                bn(p["downsample_bn"], st["downsample_bn"],
+                   f"{dst}.downsample.1")
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
+
+
+def reference_checkpoint(variables, depth=50):
+    """A JAX-layout BEVFormerOcc tree (ResNet without DCN, gather encoder)
+    as the reference's checkpoint: the inverse of
+    `utils.torch_convert.convert_bevformer_occ_checkpoint`, after
+    tests/test_full_convert.py's `_fabricate_state_dict`."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = torchvision_resnet(params["backbone"], stats["backbone"], depth,
+                            "img_backbone.")
+
+    def lin(src, dst):
+        sd[f"{dst}.weight"] = np.transpose(src["kernel"])
+        if "bias" in src:
+            sd[f"{dst}.bias"] = src["bias"]
+
+    def conv2d(src, dst):
+        sd[f"{dst}.weight"] = np.transpose(src["kernel"], (3, 2, 0, 1))
+        sd[f"{dst}.bias"] = src["bias"]
+
+    neck = params["neck"]
+    n_lat = sum(k.startswith("lateral_") for k in neck)
+    for i in range(n_lat):
+        conv2d(neck[f"lateral_{i}"], f"img_neck.lateral_convs.{i}.conv")
+        conv2d(neck[f"fpn_{i}"], f"img_neck.fpn_convs.{i}.conv")
+    for j in range(sum(k.startswith("fpn_extra_") for k in neck)):
+        conv2d(neck[f"fpn_extra_{j}"], f"img_neck.fpn_convs.{n_lat + j}.conv")
+    head = params["head"]
+    R, T = "pts_bbox_head", "pts_bbox_head.transformer"
+    trans = head["transformer"]
+    sd[f"{R}.bev_embedding.weight"] = head["bev_embedding"]
+    for k in ("row_embed", "col_embed"):
+        sd[f"{R}.positional_encoding.{k}.weight"] = \
+            head["positional_encoding"][k]
+    sd[f"{T}.level_embeds"] = trans["level_embeds"]
+    sd[f"{T}.cams_embeds"] = trans["cams_embeds"]
+    for lname, layer in trans["encoder"].items():
+        E = f"{T}.encoder.layers.{int(lname.replace('layer', ''))}"
+        for name in ("sampling_offsets", "attention_weights", "value_proj",
+                     "output_proj"):
+            lin(layer["self_attn"][name], f"{E}.attentions.0.{name}")
+        for name in ("sampling_offsets", "attention_weights", "value_proj"):
+            lin(layer["cross_attn"]["deformable_attention"][name],
+                f"{E}.attentions.1.deformable_attention.{name}")
+        lin(layer["cross_attn"]["output_proj"],
+            f"{E}.attentions.1.output_proj")
+        lin(layer["ffn"]["fc1"], f"{E}.ffns.0.layers.0.0")
+        lin(layer["ffn"]["fc2"], f"{E}.ffns.0.layers.1")
+        for j in range(3):
+            sd[f"{E}.norms.{j}.weight"] = layer[f"norm{j + 1}"]["scale"]
+            sd[f"{E}.norms.{j}.bias"] = layer[f"norm{j + 1}"]["bias"]
+    for j in (0, 1):
+        dec = trans[f"decoder{j}"]
+        decs = stats["head"]["transformer"][f"decoder{j}"]["bn"]
+        sd[f"{T}.decoder.{j}.conv.weight"] = np.transpose(
+            dec["conv"]["kernel"], (4, 3, 0, 1, 2))
+        for a, b in (("weight", dec["bn"]["scale"]),
+                     ("bias", dec["bn"]["bias"]),
+                     ("running_mean", decs["mean"]),
+                     ("running_var", decs["var"])):
+            sd[f"{T}.decoder.{j}.bn.{a}"] = b
+    for name in ("predicter", "flow_predicter"):
+        lin(trans[name]["fc1"], f"{T}.{name}.0")
+        lin(trans[name]["fc2"], f"{T}.{name}.2")
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
+
+
+def cpu_name() -> str:
+    """The host CPU as /proc/cpuinfo names it (its model name, else its
+    vendor / family / model / part fields), with the core count."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break               # the first processor only
+                k, _, v = line.partition(":")
+                fields[k.strip()] = v.strip()
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    name = (model if model != "unknown" else "") or ", ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                     "CPU implementer", "CPU part")
+        if k in fields) or "not named by /proc/cpuinfo"
+    return f"{name} ({os.cpu_count()} cores)"
+
+
+class FrameMarks:
+    """`mark(name)` of the test CLI: a CUDA event, the host clock and the
+    launch counts of ``kernels`` at each mark; `frames()` splits them per
+    frame ("frame" starts one)."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels, self.marks = torch, kernels, []
+
+    def __call__(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, time.perf_counter(),
+                           {k: v.launches for k, v in self.kernels.items()}))
+
+    def frames(self):
+        self.torch.cuda.synchronize()
+        out, cur = [], None
+        for name, ev, t, counts in self.marks:
+            if name == "frame":
+                cur = {"_ev": ev, "_t": t, "_n": counts, "launches": {}}
+                out.append(cur)
+                continue
+            cur[name] = (cur["_ev"].elapsed_time(ev), (t - cur["_t"]) * 1e3)
+            cur["launches"] = {k: counts[k] - cur["_n"][k] for k in counts}
+            cur["_ev"], cur["_t"] = ev, t
+        return out
+
+
+def log_frames(frames, load_ms, stages):
+    """Mean ms a frame by CUDA events / host clock of each stage, and the
+    host's load (decode + labels) ms on the loader thread."""
+    log(f"  host load (6 JPEG decodes + labels) ms a frame: "
+        f"{[round(x, 3) for x in load_ms]}, mean "
+        f"{float(np.mean(load_ms)):.3f}; CPU {cpu_name()}")
+    for st in stages:
+        dev = [f[st][0] for f in frames]
+        host = [f[st][1] for f in frames]
+        log(f"  {st:8s} ms a frame, CUDA events {[round(x, 3) for x in dev]}"
+            f" / host clock {[round(x, 3) for x in host]}")
+    log(f"  launches a frame {[f['launches'] for f in frames]}")
+
+
+def phase_data_base_occ(torch, results, root):
+    """Phase 25: the committed fixtures decoded to their digests, a
+    reference checkpoint converted bit for bit, the test CLI on base_occ
+    (--torch-checkpoint --eval --format-only), then ray_casting + metric."""
+    import hashlib
+    from occnet_tpu_torch.config import get_config
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.data import jpeg
+    from occnet_tpu_torch.evaluation.submission import (load_submission,
+                                                        score_submissions)
+    from occnet_tpu_torch.models import head
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.ops.ray_march_vec import FAN, FAN_RENDER
+    from occnet_tpu_torch.tools import metric, ray_casting
+    from occnet_tpu_torch.tools import test as test_cli
+    from occnet_tpu_torch.utils.torch_convert import (
+        load_bevformer_into_state_dict)
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        digests = json.load(f)["sha256_of_rgb_uint8"]
+    t = time.perf_counter()
+    jpeg.library()
+    log(f"  JPEG decoder built/loaded in {time.perf_counter() - t:.2f} s "
+        f"(host c++)")
+    ms = []
+    for name, want in sorted(digests.items()):
+        t = time.perf_counter()
+        px = jpeg.read_jpeg(os.path.join(FIXTURES, name))
+        ms.append((time.perf_counter() - t) * 1e3)
+        got = hashlib.sha256(px.tobytes()).hexdigest()
+        if px.shape != (900, 1600, 3) or got != want:
+            raise RuntimeError(f"{name}: decoded {px.shape} {got}, "
+                               f"tf.io.decode_jpeg gives {want}")
+    log(f"  6 fixtures decoded to tf.io.decode_jpeg's digests; decode ms "
+        f"(host, one thread) {[round(x, 3) for x in ms]}; CPU {cpu_name()}")
+
+    cfg = get_config("base_occ")
+    m = cfg.model
+    work = os.path.join(root, "work_base_occ")
+    pth = os.path.join(root, "bevformer_occ.pth")
+    v = init_jax_style_variables(cfg, seed=0)
+    torch.save({"state_dict": {k: torch.from_numpy(a) for k, a in
+                               reference_checkpoint(v).items()}}, pth)
+    want = from_jax_variables(v)
+    other = from_jax_variables(init_jax_style_variables(cfg, seed=1))
+    got = load_bevformer_into_state_dict(
+        other, torch.load(pth, weights_only=True)["state_dict"], depth=50,
+        num_encoder_layers=m.encoder.num_layers)
+    moved = sum(not torch.equal(other[k], want[k]) for k in want)
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k])
+                                            for k in want):
+        raise RuntimeError("the reference checkpoint did not convert back "
+                           "to its weights bit for bit")
+    log(f"  reference .pth ({os.path.getsize(pth) / 2 ** 20:.1f} MiB, "
+        f"{len(want)} tensors) converted into a seed-1 init: all equal to "
+        f"the weights it was made from ({moved} tensors moved)")
+
+    preds = {}
+
+    def capture(outs):              # kept on the card: no extra sync
+        occ, flow = get_occ(outs)
+        preds[len(preds)] = (occ[0].clone(), flow[0].float())
+        return occ, flow
+
+    get_occ = head.get_occ
+    kernels = {"msda": MSDA, "fan": FAN_RENDER, "fan_raw": FAN}
+    for k in kernels.values():
+        k.launches = 0
+    marks = FrameMarks(torch, kernels)
+    sub_path = os.path.join(root, "submission.gz")
+    t = time.perf_counter()
+    with patched(head, "get_occ", capture):
+        summary = test_cli.main([
+            "--config", "base_occ", "--torch-checkpoint", pth, "--eval",
+            "--format-only", "--max-samples", str(MINISET_FRAMES),
+            "--work-dir", work, "--out", sub_path, "--set",
+            f"data.data_root={root}", "data.val_ann=infos_val.pkl"],
+            mark=marks)
+    wall = time.perf_counter() - t
+    launches = {k: v.launches for k, v in kernels.items()}
+    frames = marks.frames()
+    ks = summary["per_cam_topk"]
+    want_msda = MINISET_FRAMES * m.encoder.num_layers * (1 + len(set(ks)))
+    want_l = {"msda": want_msda, "fan": 2 * MINISET_FRAMES, "fan_raw": 0}
+    scores = summary["scores"]
+    log(f"  test CLI (base_occ, {MINISET_FRAMES} frames, --eval "
+        f"--format-only) in {wall:.1f} s: auto top-K per camera {ks}, "
+        f"certificate {summary['overflow']}, scores {scores}; launches "
+        f"{launches} (expected {want_l}); card {nvidia_smi()}")
+    log_frames(frames, summary["load_ms"], ("forward", "render", "counts"))
+    sub = load_submission(sub_path)["results"]
+    finite = all(np.isfinite(a.astype(np.float32)).all()
+                 for r in sub.values() for a in r.values())
+    if summary["overflow"] != 0 or launches != want_l \
+            or sorted(sub) != summary["tokens"] or len(sub) != MINISET_FRAMES \
+            or not finite:
+        raise RuntimeError("the test CLI's run on base_occ is wrong")
+    # mAVE (and so OccScore) is NaN exactly when no ray of a flow class is a
+    # true positive, the reference's semantics; the point clouds are finite
+    if not all(np.isfinite(scores[k]) and 0 <= scores[k] <= 1 for k in
+               ("RayIoU", "RayIoU@1", "RayIoU@2", "RayIoU@4")) \
+            or np.isnan(scores["mAVE"]) != np.isnan(scores["OccScore"]):
+        raise RuntimeError(f"test CLI scores wrong: {scores}")
+    results.setdefault("phase_launches", {})["25"] = launches
+
+    pred_dir = os.path.join(root, "preds")
+    os.makedirs(pred_dir)
+    for i, tok in enumerate(summary["tokens"]):
+        np.savez(os.path.join(pred_dir, f"{tok}.npz"),
+                 semantics=preds[i][0].cpu().numpy(),
+                 flow=preds[i][1].cpu().numpy())
+    FAN_RENDER.launches = 0
+    pred_gz, gt_gz = (os.path.join(root, f"{n}.gz") for n in ("pred", "gt"))
+    t = time.perf_counter()
+    ray_casting.main(["--pred-dir", pred_dir, "--infos",
+                      os.path.join(root, "infos_val.pkl"), "--data-root",
+                      root, "--pred-out", pred_gz, "--gt-out", gt_gz])
+    cast_s = time.perf_counter() - t
+    same = metric.main(["--pred", gt_gz, "--gt", gt_gz])
+    scored = metric.main(["--pred", pred_gz, "--gt", gt_gz])
+    direct = score_submissions(pred_gz, gt_gz)
+    cast = load_submission(pred_gz)["results"]
+    log(f"  ray_casting: {2 * MINISET_FRAMES} grids in {cast_s:.2f} s, fan "
+        f"render launches {FAN_RENDER.launches}; metric GT vs GT {same}; "
+        f"prediction vs GT {scored}")
+    if FAN_RENDER.launches != 2 * MINISET_FRAMES \
+            or abs(same["RayIoU"] - 1) > 1e-9 \
+            or abs(same["OccScore"] - 1) > 1e-9:
+        raise RuntimeError("GT against GT does not score 1")
+    if any(not (scored[k] == direct[k] or (np.isnan(scored[k])
+                                           and np.isnan(direct[k])))
+           for k in direct):
+        raise RuntimeError("the metric CLI disagrees with score_submissions")
+    for tok, r in sub.items():
+        if any(not np.array_equal(r[k], cast[tok][k]) for k in r):
+            raise RuntimeError(f"{tok}: the test CLI's submission and "
+                               f"ray_casting's differ")
+
+
+def dcn_needs(torch, pred, imgs, e2i):
+    """Each DCN block's needed_radius on one request where the JAX package
+    runs the window kernel (`window_supported`), else 0, computed from each
+    layer's own offsets by forward pre-hooks."""
+    from occnet_tpu_torch.ops.dcn_window import needed_radius, window_supported
+    from occnet_tpu_torch.ops.deform_conv import ModulatedDeformConv
+    needs, hooks = {}, []
+
+    def probe(name, mod, inputs):
+        x = inputs[0]
+        off, _ = mod.offset_and_mask(x)
+        needs[name] = (int(needed_radius(off, *x.shape[2:]))
+                       if window_supported(x.shape[3], 3, mod.stride, 1)
+                       else 0)
+
+    for name, mod in pred.model.backbone.named_modules():
+        if isinstance(mod, ModulatedDeformConv):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda mm, i, n=name.split(".")[0]: probe(n, mm, i)))
+    try:
+        pred.infer(imgs, e2i)
+    finally:
+        for h in hooks:
+            h.remove()
+    return needs
+
+
+def phase_data_dcn(torch, results, root):
+    """Phase 26: the test CLI on turbo_r101_dcn_occ with the DCN radius
+    probe, on the miniset, random weights calibrated on its first frame."""
+    from occnet_tpu_torch.config import get_config
+    from occnet_tpu_torch.data.nuscenes import NuSceneOccDataset
+    from occnet_tpu_torch.models.resnet import dcn_layer_indices
+    from occnet_tpu_torch.ops import deform_conv as dc
+    from occnet_tpu_torch.ops.lift_cuda import LIFT
+    from occnet_tpu_torch.ops.ray_march_vec import FAN_RENDER
+    from occnet_tpu_torch.ops.tsa import TAP
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.tools import test as test_cli
+    cfg = get_config("turbo_r101_dcn_occ")
+    m = cfg.model
+    s0 = NuSceneOccDataset(dataclasses.replace(cfg.data, data_root=root),
+                           os.path.join(root, "infos_val.pkl"),
+                           training=False).get_sample(0)
+    imgs, e2i = s0["img"][None], s0["ego2img"][None]
+    sd = dcn_weights(torch, cfg, "cuda", imgs, e2i, seed=11)
+    ckpt = os.path.join(root, "ckpt_r101_dcn.pt")
+    torch.save({"step": 0, "model": sd}, ckpt)
+    needs = dcn_needs(torch, Predictor(cfg, sd, "cuda"), imgs, e2i)
+    del sd
+    idx = dcn_layer_indices(101, m.backbone.dcn_stages)
+    want_radii = tuple(needs[n] for n in sorted(idx, key=idx.get))
+    torch.cuda.empty_cache()
+    kernels = {"dcn_conv": dc.DEFORM_CONV, "dcn_sample": dc.DEFORM,
+               "lift": LIFT, "tap": TAP, "fan": FAN_RENDER}
+    for k in kernels.values():
+        k.launches = 0
+    marks = FrameMarks(torch, kernels)
+    t = time.perf_counter()
+    summary = test_cli.main([
+        "--config", "turbo_r101_dcn_occ", "--checkpoint", ckpt, "--eval",
+        "--max-samples", str(MINISET_FRAMES), "--work-dir",
+        os.path.join(root, "work_dcn"), "--set", f"data.data_root={root}",
+        "data.val_ann=infos_val.pkl"], mark=marks)
+    wall = time.perf_counter() - t
+    launches = {k: v.launches for k, v in kernels.items()}
+    frames = marks.frames()
+    per_req = {"dcn_conv": 26, "dcn_sample": 0,
+               "lift": m.num_feature_levels, "tap": m.encoder.num_layers}
+    want_frame = {**per_req, "fan": 1}
+    # the probe is one more request
+    want_l = {k: (MINISET_FRAMES + 1) * n for k, n in per_req.items()}
+    want_l["fan"] = MINISET_FRAMES
+    log(f"  test CLI (turbo_r101_dcn_occ, {MINISET_FRAMES} frames, --eval) "
+        f"in {wall:.1f} s: probed radii {summary['dcn_radii']} (needed "
+        f"{want_radii}, configured R={m.backbone.dcn_window_radius}), "
+        f"certificate {summary['overflow']}, scores {summary['scores']}; "
+        f"launches {launches} (expected {want_l}); card {nvidia_smi()}")
+    log_frames(frames, summary["load_ms"], ("forward", "render", "counts"))
+    if summary["dcn_radii"] != want_radii or summary["overflow"] != 0 \
+            or launches != want_l \
+            or any(f["launches"] != want_frame for f in frames) \
+            or not np.isfinite(summary["scores"]["RayIoU"]):
+        raise RuntimeError("the test CLI's run on turbo_r101_dcn_occ is "
+                           "wrong")
+    results.setdefault("phase_launches", {})["26"] = launches
+
+
+def phase_data_train(torch, results, root):
+    """Phase 27: the train CLI on the miniset (turbo_occ, full width, B = 1,
+    2 steps) with a torchvision-layout backbone checkpoint and the eval
+    hook, then one more step resumed from its checkpoint."""
+    from occnet_tpu_torch.config import get_config
+    from occnet_tpu_torch.convert import init_jax_style_variables
+    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD, LIFT_BWD_INDEX
+    from occnet_tpu_torch.ops.ray_march_vec import FAN_RENDER
+    from occnet_tpu_torch.ops.tsa import TAP, TAP_BWD
+    from occnet_tpu_torch.tools import train as train_cli
+    cfg = get_config("turbo_occ")
+    m = cfg.model
+    # a torchvision-layout ResNet-50 (he-normal convs of another seed than
+    # the CLI's init, identity statistics), conv1 in BGR order
+    v = init_jax_style_variables(cfg, seed=5)
+    tv = torchvision_resnet(v["params"]["backbone"],
+                            v["batch_stats"]["backbone"], 50)
+    r50 = os.path.join(root, "resnet50.pth")
+    torch.save({k: torch.from_numpy(a) for k, a in tv.items()}, r50)
+    work = os.path.join(root, "work_train")
+    argv = ["--config", "turbo_occ", "--work-dir", work,
+            "--backbone-checkpoint", r50, "--eval-interval-epochs", "1",
+            "--set", f"data.data_root={root}",
+            "data.train_ann=infos_train.pkl", "data.val_ann=infos_val2.pkl"]
+    kernels = {"lift": LIFT, "tap": TAP, "lift_bwd": LIFT_BWD,
+               "lift_bwd_index": LIFT_BWD_INDEX, "tap_bwd": TAP_BWD,
+               "fan": FAN_RENDER}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    history = train_cli.main(argv + ["--max-steps", "2"])
+    wall = time.perf_counter() - t
+    launches = {k: v.launches for k, v in kernels.items()}
+    steps = [h for h in history if "loss" in h]
+    evals = [h for h in history if h.get("tag") == "eval"]
+    L, E = m.num_feature_levels, m.encoder.num_layers
+    want_l = {"lift": 2 * L + 2 * L, "tap": 2 * E + 2 * E,
+              "lift_bwd": 2 * L, "lift_bwd_index": 2 * L, "tap_bwd": 2 * E,
+              "fan": 2}
+    log(f"  train CLI (turbo_occ, 2 steps on {len(steps)} logged, eval on "
+        f"2 val frames) in {wall:.1f} s: losses "
+        f"{[round(h['loss'], 4) for h in steps]}, eval {evals}; peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+        f"launches {launches} (expected {want_l}); card {nvidia_smi()}")
+    ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
+    conv1 = ck["model"]["backbone.conv1.weight"].cpu().numpy()
+    if [h["step"] for h in steps] != [0, 1] \
+            or not all(np.isfinite(h["loss"]) for h in steps) \
+            or len(evals) != 1 or not np.isfinite(evals[0]["RayIoU"]) \
+            or launches != want_l or ck["step"] != 2 \
+            or not np.array_equal(conv1, tv["conv1.weight"][:, ::-1]):
+        raise RuntimeError("the train CLI's run on the miniset is wrong")
+    LIFT_BWD.launches = 0
+    resumed = train_cli.main(argv + ["--resume", "--max-steps", "3"])
+    ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
+    log(f"  resumed: {resumed}; lift_bwd launches {LIFT_BWD.launches}; "
+        f"checkpoint step {ck['step']}")
+    if [h["step"] for h in resumed if "loss" in h] != [2] \
+            or not np.isfinite(resumed[0]["loss"]) or ck["step"] != 3 \
+            or LIFT_BWD.launches != L:
+        raise RuntimeError("the train CLI did not resume from its checkpoint")
+    results.setdefault("phase_launches", {})["27"] = launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3057,12 +3610,12 @@ def main():
     from occnet_tpu_torch.ops import _build
 
     # 1. device
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"{name}; nvidia-smi: {smi}; allow_tf32 matmul="
+        f"{kind}; nvidia-smi: {smi}; allow_tf32 matmul="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
         f"{torch.backends.cudnn.allow_tf32}")
 
@@ -3147,6 +3700,28 @@ def main():
             bwd[k] += n
     results["msda_bwd"]["launches"] = bwd["msda_bwd"]
     results["dcn_bwd"]["launches"] = bwd["dcn_bwd"]
+    torch.cuda.empty_cache()
+
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_nusc_")
+    try:
+        write_miniset(root)
+        for n, label, fn in (
+                (25, "data, conversion and the test CLI on base_occ",
+                 phase_data_base_occ),
+                (26, "the test CLI on turbo_r101_dcn_occ with the DCN "
+                     "radius probe", phase_data_dcn),
+                (27, "the train CLI on the miniset (turbo_occ)",
+                 phase_data_train)):
+            log(f"[{n} {label}] full width, {MINISET_FRAMES}-frame "
+                f"nuScenes-layout data root")
+            t = time.perf_counter()
+            fn(torch, results, root)
+            torch.cuda.empty_cache()
+            log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -3221,6 +3796,15 @@ def main():
                       "occnet_tpu/ops/deform_conv.py:34",
              **results["dcn_bwd"]),
     ]
+    # launches on the data path (phases 25-27), by phase, for the kernels
+    # it runs (each phase zeroes the counts before its run)
+    alias = {"fan": "ray_march_fan", "dcn_conv": "dcn_conv",
+             "dcn_sample": "dcn"}
+    for phase, counts in results["phase_launches"].items():
+        for kname, n in counts.items():
+            for k in kernels:
+                if k["name"] == alias.get(kname, kname) and n:
+                    k.setdefault("data_path_launches", {})[phase] = n
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     for k in kernels:
@@ -3229,7 +3813,7 @@ def main():
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

@@ -1,7 +1,7 @@
-"""Image processing (port of `occnet_tpu.data.pipeline`): the on-device
-normaliser of the serving path, the train-time augmenter (photometric
-distortion -> normalise -> pad) of uint8 uploads, and the host-side
-normalise and pad of float datasets.
+"""Image processing (port of `occnet_tpu.data.pipeline`): the occupancy
+ground-truth reader (`load_occ_gt`), the on-device normaliser of the serving
+path, the train-time augmenter (photometric distortion -> normalise -> pad)
+of uint8 uploads, and the host-side normalise and pad of float datasets.
 
 The photometric distortion is split into a draw from a `torch.Generator`
 (`photometric_draws`) and an apply from explicit draws
@@ -11,6 +11,7 @@ package's on the same draws.  Every draw stays on the device.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -20,6 +21,19 @@ import torch.nn.functional as F
 from occnet_tpu_torch.config import DataConfig
 
 Draws = Dict[str, torch.Tensor]
+
+
+def load_occ_gt(occ_path: Optional[str],
+                occ_size: Tuple[int, int, int] = (200, 200, 16)):
+    """labels.npz -> (semantics uint8 (X, Y, Z), flow float32 (X, Y, Z, 2));
+    zeros at ``occ_size`` when the file is absent (the test split)."""
+    if occ_path is not None and os.path.exists(occ_path):
+        labels = np.load(occ_path)
+        return (labels["semantics"].astype(np.uint8),
+                labels["flow"].astype(np.float32))
+    sem = np.zeros(occ_size, dtype=np.uint8)
+    flow = np.zeros(occ_size + (2,), dtype=np.float32)
+    return sem, flow
 
 
 def _mean_std(cfg: DataConfig):

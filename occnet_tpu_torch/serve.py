@@ -64,12 +64,12 @@ class Predictor:
         self.dcn_window_overflow: Optional[int] = None
 
     @torch.inference_mode()
-    def __call__(self, images: ArrayLike, ego2img: ArrayLike,
-                 with_logits: bool = False) -> Tuple[torch.Tensor, ...]:
-        """images uint8 (B, cams, H, W, 3) RGB (or already-normalised float),
-        ego2img (B, cams, 4, 4).  Returns (occ_cls (B, X, Y, Z) int64,
-        flow (B, X, Y, Z, 2)) on the predictor's device, plus the occ logits
-        (B, X, Y, Z, classes) with ``with_logits``."""
+    def infer(self, images: ArrayLike, ego2img: ArrayLike
+              ) -> Dict[str, torch.Tensor]:
+        """The model's outputs for a request (occ logits, flow and the
+        certificates, on the device), without checking the certificates and
+        without waiting for the device: for a caller that sums the
+        certificates over many requests (`tools.test`)."""
         imgs = torch.as_tensor(images).to(self.device, non_blocking=True)
         e2i = torch.as_tensor(ego2img).to(self.device, torch.float32)
         x = self.normalize(imgs)
@@ -77,7 +77,16 @@ class Predictor:
         if tuple(x.shape[-3:-1]) != (m.img_h, m.img_w):
             raise ValueError(f"padded images are {tuple(x.shape[-3:-1])}, "
                              f"the config expects {(m.img_h, m.img_w)}")
-        outs = self.model(x, e2i)
+        return self.model(x, e2i)
+
+    @torch.inference_mode()
+    def __call__(self, images: ArrayLike, ego2img: ArrayLike,
+                 with_logits: bool = False) -> Tuple[torch.Tensor, ...]:
+        """images uint8 (B, cams, H, W, 3) RGB (or already-normalised float),
+        ego2img (B, cams, 4, 4).  Returns (occ_cls (B, X, Y, Z) int64,
+        flow (B, X, Y, Z, 2)) on the predictor's device, plus the occ logits
+        (B, X, Y, Z, classes) with ``with_logits``."""
+        outs = self.infer(images, ego2img)
         self.sca_topk_overflow, self.dcn_window_overflow = (
             None if outs.get(k) is None else int(outs[k])
             for k in ("sca_topk_overflow", "dcn_window_overflow"))

@@ -1,6 +1,8 @@
 """Training CLI of the port (counterpart of `tools/train.py`).
 
     python -m occnet_tpu_torch.tools.train --config turbo_occ \
+        --set data.data_root=/data/nuscenes/ --eval-interval-epochs 1
+    python -m occnet_tpu_torch.tools.train --config turbo_occ \
         --synthetic-data --max-steps 3
     python -m occnet_tpu_torch.tools.train --config tiny_turbo_occ \
         --synthetic-data --max-steps 3 --device cpu
@@ -9,19 +11,31 @@
 
 The device is the card unless ``--device cpu`` says otherwise: without a
 CUDA device the CLI exits and names that flag.  Config selection and dotted
-``--set KEY=VAL`` overrides as in the JAX CLI.  Weights are random, drawn
-with the JAX package's initialisers from ``--seed``.  Two data sources, both
-synthetic (no dataset loader is ported):
+``--set KEY=VAL`` overrides as in the JAX CLI.  Weights are drawn with the
+JAX package's initialisers from ``--seed``; ``--backbone-checkpoint`` loads
+a torchvision ResNet state_dict into the backbone
+(`utils.torch_convert.load_resnet_into_state_dict`, conv1 flipped to RGB).
+``--autoscale-lr`` scales the learning rate by the data-parallel size (1)
+over the reference's 8 GPUs.  Three data sources:
 
+- by default the nuScenes / OpenOcc train split of ``data.data_root``
+  (`data.nuscenes.build_train_dataset`: ``data.train_ann``, plus
+  ``data.extra_trainsets`` concatenated), uint8 images distorted,
+  normalised and padded on the device; the val split (``data.val_ann``)
+  is scored by the eval hook;
 - ``--synthetic-data``: one random batch (uint8 images on the ring rig,
   random labels and flow) from ``--seed``, reused every step;
 - ``--synthetic-geometric N``: N scenes of the synthetic geometric benchmark
   (`data/synthetic.py`, rendered on the device; train seeds from 1000),
-  shuffled per epoch (epoch = N // batch steps), with uint8 views
-  normalised on the device and the photometric distortion off (the task
-  encodes class in colour).  ``--eval-interval-epochs K`` scores RayIoU /
-  mAVE / OccScore every K epochs on max(8, N // 16) held-out scenes (seeds
-  from 0) with `training.eval_loop.run_evaluation`.
+  with uint8 views normalised on the device and the photometric distortion
+  off (the task encodes class in colour), and max(8, N // 16) held-out
+  scenes (seeds from 0) for the eval hook.
+
+Datasets are shuffled per epoch (epoch = frames // batch steps).
+``--eval-interval-epochs K`` scores RayIoU / mAVE / OccScore with
+`training.eval_loop.run_evaluation` every K epochs, and
+``--eval-dynamic-intervals EPOCH:K,...`` changes K from an epoch on (the
+reference's dynamic_intervals).
 
 Logs loss, grad_norm and lr every ``--log-interval`` steps (default every
 step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a checkpoint
@@ -29,7 +43,8 @@ step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a checkpoint
 under ``--work-dir``; ``--resume`` continues from it.  The exactness
 certificates (`cert_overflow`) are summed on the device and checked at every
 log: a nonzero sum aborts the run.  Returns the logged metrics, evaluations
-included.
+included.  Not carried yet: ``--temporal-queue`` (ROADMAP Queue 1 item 2),
+``--distributed`` and ``--profile`` (item 5).
 """
 
 from __future__ import annotations
@@ -73,6 +88,22 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--eval-interval-epochs", type=int, default=0,
                    help="run ray-metric evaluation on the val split every N "
                         "epochs (0 = off)")
+    p.add_argument("--eval-dynamic-intervals", default="",
+                   metavar="EPOCH:N[,EPOCH:N...]",
+                   help="change the eval interval once training reaches an "
+                        "epoch milestone, e.g. '20:1' = every epoch from "
+                        "epoch 20 (the reference's dynamic_intervals)")
+    p.add_argument("--autoscale-lr", action="store_true",
+                   help="scale optim.lr by data-parallel size / 8, the "
+                        "reference's 8-GPU linear-scaling rule")
+    p.add_argument("--backbone-checkpoint", default=None,
+                   help="torchvision ResNet state_dict (.pth) to initialise "
+                        "the backbone (the reference's "
+                        "pretrained='torchvision://resnet50')")
+    for flag, item in (("--temporal-queue", 2), ("--distributed", 5),
+                       ("--profile", 5)):
+        p.add_argument(flag, default=None, nargs="?", const=True,
+                       help=f"not ported yet (ROADMAP Queue 1 item {item})")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
     p.add_argument("--device", default="cuda",
@@ -139,14 +170,16 @@ def main(argv: Optional[Sequence[str]] = None):
     from occnet_tpu_torch.training.train import (create_train_state,
                                                  make_train_step)
 
+    for flag, item in (("temporal_queue", 2), ("distributed", 5),
+                       ("profile", 5)):
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"occnet_tpu_torch.tools.train: --"
+                             f"{flag.replace('_', '-')} is not ported yet "
+                             f"(ROADMAP Queue 1 item {item})")
     cfg = get_config(args.config)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
-    if not (args.synthetic_data or args.synthetic_geometric):
-        raise SystemExit("occnet_tpu_torch trains on --synthetic-data or "
-                         "--synthetic-geometric N only; the dataset loaders "
-                         "are not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("occnet_tpu_torch.tools.train: no CUDA device is "
@@ -163,6 +196,25 @@ def main(argv: Optional[Sequence[str]] = None):
     log.info("config: %s", cfg)
 
     batch_size = cfg.data.batch_size_per_device
+    if args.autoscale_lr:
+        # linear scaling against the reference's 8-GPU recipe
+        # (`tools/train.py:159-161`: lr * n_gpus / 8), one device here
+        n_dp = 1
+        cfg = apply_overrides(cfg, {"optim.lr": cfg.optim.lr * n_dp / 8.0})
+        log.info("autoscale-lr: %.3e (dp=%d)", cfg.optim.lr, n_dp)
+    # dynamic eval intervals: sorted (milestone epoch, interval) pairs; the
+    # interval in force is that of the last milestone reached
+    dyn_eval = sorted((int(e), int(i)) for e, i in (
+        kv.split(":") for kv in args.eval_dynamic_intervals.split(",") if kv))
+
+    def eval_interval_at(epoch: int) -> int:
+        iv = args.eval_interval_epochs
+        for e, i in dyn_eval:
+            if epoch + 1 >= e:
+                iv = i
+        return iv
+
+    wants_eval = bool(args.eval_interval_epochs or dyn_eval)
     dataset = val_dataset = None
     if args.synthetic_geometric:
         from occnet_tpu_torch.data.synthetic import SyntheticOccDataset
@@ -172,7 +224,7 @@ def main(argv: Optional[Sequence[str]] = None):
             cfg.data, cfg.model, args.synthetic_geometric, seed=1000,
             render_scale=args.synthetic_render_scale, log=log.info,
             device_normalize=True, device=device)
-        if args.eval_interval_epochs:
+        if wants_eval:
             val_dataset = SyntheticOccDataset(
                 cfg.data, cfg.model, max(8, args.synthetic_geometric // 16),
                 seed=0, training=False,
@@ -184,12 +236,35 @@ def main(argv: Optional[Sequence[str]] = None):
         log.info("synthetic-geometric dataset: %d scenes (%.1f ms a scene "
                  "render), %d steps/epoch", len(dataset),
                  float(np.mean(dataset.render_ms)), steps_per_epoch)
+    elif not args.synthetic_data:
+        from occnet_tpu_torch.data.nuscenes import (NuSceneOccDataset,
+                                                    build_train_dataset)
+        dataset = build_train_dataset(cfg.data, training=True)
+        if wants_eval:
+            val_dataset = NuSceneOccDataset(
+                cfg.data, os.path.join(cfg.data.data_root, cfg.data.val_ann),
+                training=False)
+        steps_per_epoch = max(len(dataset) // batch_size, 1)
+        cfg = apply_overrides(cfg, {"optim.steps_per_epoch":
+                                    str(steps_per_epoch)})
+        log.info("dataset: %d frames, %d steps/epoch", len(dataset),
+                 steps_per_epoch)
     else:
         batch = to_device(make_synthetic_batch(
             cfg, batch_size, np.random.RandomState(args.seed)), device)
     t0 = time.time()
-    state = create_train_state(cfg, from_jax_variables(
-        init_jax_style_variables(cfg, seed=args.seed)), device)
+    sd = from_jax_variables(init_jax_style_variables(cfg, seed=args.seed))
+    if args.backbone_checkpoint:
+        from occnet_tpu_torch.utils.torch_convert import (
+            load_resnet_into_state_dict)
+        ref = torch.load(args.backbone_checkpoint, map_location="cpu",
+                         weights_only=True)
+        sd = load_resnet_into_state_dict(
+            sd, ref.get("state_dict", ref),
+            depth=int(cfg.model.backbone.type.replace("resnet", "")))
+        log.info("backbone initialised from %s", args.backbone_checkpoint)
+    state = create_train_state(cfg, sd, device)
+    del sd
     n_params = sum(p.numel() for p in state.model.parameters())
     log.info("model init in %.1fs — %.2fM params", time.time() - t0,
              n_params / 1e6)
@@ -261,9 +336,11 @@ def main(argv: Optional[Sequence[str]] = None):
                     or step == total_steps - 1):
                 checkpoint.save(ckpt_path, state, cfg)
                 log.info("checkpoint @ step %d: %s", state.step, ckpt_path)
-            if (val_dataset is not None and (step + 1) % epoch_len == 0
-                    and (step // epoch_len + 1) % args.eval_interval_epochs
-                    == 0):
+            epoch_now = step // epoch_len
+            interval = eval_interval_at(epoch_now)
+            if (val_dataset is not None and interval
+                    and (step + 1) % epoch_len == 0
+                    and (epoch_now + 1) % interval == 0):
                 scores = eval_loop.run_evaluation(
                     cfg, Predictor.wrap(cfg, state.model), val_dataset,
                     log=log.info)

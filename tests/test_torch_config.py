@@ -1,6 +1,7 @@
 """The port's own config module (`occnet_tpu_torch/config.py`) against the
-JAX package's, the port's independence from the JAX package, and the
-training CLI's refusal to leave the card without being asked."""
+JAX package's, the port's independence from the JAX package (and from
+tensorflow and PIL), and the training and test CLIs' refusal to leave the
+card without being asked."""
 
 import dataclasses
 import os
@@ -48,12 +49,13 @@ def test_class_names_and_unknown_config():
 
 
 def test_port_modules_import_without_the_jax_package():
-    """Every module of `occnet_tpu_torch` (the evaluation slice's among
-    them) imports with `occnet_tpu`, `jax` and `flax` made to fail, and none
-    of them is loaded afterwards."""
+    """Every module of `occnet_tpu_torch` (the evaluation and data slices'
+    among them) imports with `occnet_tpu`, `jax`, `flax`, `tensorflow` and
+    `PIL` made to fail, and none of them is loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'flax', 'jaxlib', 'occnet_tpu'):\n"
+        "for name in ('jax', 'flax', 'jaxlib', 'occnet_tpu', 'tensorflow',\n"
+        "             'PIL'):\n"
         "    sys.modules[name] = None\n"
         "import occnet_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -61,7 +63,8 @@ def test_port_modules_import_without_the_jax_package():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k, m in sys.modules.items() if m is not None and\n"
-        "       k.split('.')[0] in ('jax', 'flax', 'jaxlib', 'occnet_tpu')]\n"
+        "       k.split('.')[0] in ('jax', 'flax', 'jaxlib', 'occnet_tpu',\n"
+        "                           'tensorflow', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('IMPORTED', ' '.join(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -78,12 +81,20 @@ def test_port_modules_import_without_the_jax_package():
         "data.quat", "data.synthetic", "data.loader", "data.sampler",
         "training.eval_loop", "tools.bench_lift_passes",
         "tools.bench_ray_march", "tools.synth_learn")} <= mods, r.stdout
+    # and the data / conversion / offline-CLI slice's
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "data.jpeg", "data.nuscenes", "data.devkit_ego_pose",
+        "data.pipeline", "utils", "utils.torch_convert",
+        "evaluation.submission", "tools.test", "tools.ray_casting",
+        "tools.metric", "tools.train")} <= mods, r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
-    """With no CUDA device and no --device, the CLI exits naming
-    `--device cpu` before it writes anything; with it, it trains."""
-    from occnet_tpu_torch.tools import train
+    """With no CUDA device and no --device, the train CLI, the test CLI and
+    the ray-casting CLI exit naming `--device cpu` before they write
+    anything; with it, the train CLI trains.  The train CLI's flags not
+    ported yet exit naming their ROADMAP item."""
+    from occnet_tpu_torch.tools import ray_casting, test, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     argv = ["--config", "tiny_turbo_occ", "--synthetic-data",
@@ -93,6 +104,14 @@ def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
             "model.encoder.num_layers=1", "model.encoder.ffn_dim=32"]
     with pytest.raises(SystemExit, match="--device cpu"):
         train.main(argv)
+    for flag, item in (("--temporal-queue=2", 2), ("--distributed", 5),
+                       ("--profile=3", 5)):
+        with pytest.raises(SystemExit, match=f"Queue 1 item {item}"):
+            train.main(argv + [flag, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        test.main(["--config", "tiny_occ", "--eval"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        ray_casting.main(["--pred-dir", "p", "--infos", "i.pkl"])
     assert not os.listdir(tmp_path)
     history = train.main(argv + ["--device", "cpu", "--work-dir",
                                  str(tmp_path / "run")])
