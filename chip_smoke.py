@@ -173,6 +173,36 @@ Phases (each raises on failure, so any failure exits nonzero):
               the eval hook on 2 val frames: finite losses, lift / tap
               forward and backward launches, the checkpoint written and one
               more step resumed from it
+ 28. temporal parity  the nearest rotation's source indices at 200 x 200
+              on 254 angles (cos / sin taken on each device) card vs CPU,
+              equal except within ROT_TIE_PX of a .5 tie; tiny_turbo_occ
+              and tiny_occ (static top-K) in fp32 card vs CPU: a 2-scene x
+              3-frame stream through StreamingInferenceState (yaw and
+              translation a frame; history BEV and logits within
+              LOGIT_ATOL, certificates 0) and one clip train step (T = 3,
+              one padded frame; phase 7 / 21's bounds)
+ 29. temporal serve  turbo_occ and base_occ (bf16, full width) stream 2
+              scenes x TEMPORAL_FRAMES uint8 900 x 1600 frames: 4 lift + 4
+              tap or 8 msda launches a frame (the single-frame counts),
+              certificates 0, each scene's first frame equal to a
+              single-frame request and the later ones not; host ms a
+              frame, the align / forward split by CUDA events, the
+              single-frame latency of the same frames in turns (stream,
+              single, single, stream), peak memory
+ 30. temporal train  clip steps through the train CLI's temporal step,
+              full width, bf16, B = 1 (turbo_occ T = 2 and 4, base_occ
+              T = 2): 1 warm-up + 2 timed steps, finite losses,
+              certificates 0, launches a step (4T lift + 4T tap and 4
+              lift_bwd + 4 tap_bwd; 8T msda + 8 msda_bwd), host ms, the
+              history / forward / backward / optimizer split by CUDA
+              events, peak memory
+ 31. temporal data root  on phase 25's data root: the test CLI with
+              --video --eval --format-only on base_occ (auto top-K,
+              certificate 0, msda and fan render launches as phase 25,
+              history engaged on each scene's second frame, finite scores,
+              GT vs GT RayIoU 1); the train CLI with --temporal-queue 2 on
+              turbo_occ for 2 steps (lift / tap launches for both clip
+              frames, the backward's for the last) and one step resumed
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -2828,19 +2858,23 @@ def bwd_real(torch, name, store, results):
                 t["kernel"]
 
 
-def train_step_parity(torch, label, cfg, sd, batch, trunk_l2=False):
+def train_step_parity(torch, label, cfg, sd, batch, trunk_l2=False,
+                      make_step=None, l2_leaves=()):
     """One train step of ``cfg`` from the state_dict ``sd`` on ``batch``
     (numpy) on the card and on the CPU: loss within 1e-3 relative, every
     gradient within GRAD_RTOL x max|g| per leaf (with ``trunk_l2`` the
-    trunk's leaves within TRUNK_L2_RTOL in L2 instead), BN statistics
-    within 1e-3, certificate 0 on both."""
+    trunk's leaves, and the leaves named in ``l2_leaves``, within
+    TRUNK_L2_RTOL in L2 instead), BN statistics within 1e-3, certificate 0
+    on both.  ``make_step`` builds the step (default
+    `training.train.make_train_step`)."""
     from occnet_tpu_torch.tools.train import to_device
     from occnet_tpu_torch.training.train import (create_train_state,
                                                  make_train_step)
     runs = {}
     for dev in ("cuda", "cpu"):
         state = create_train_state(cfg, sd, dev)
-        metrics = make_train_step(cfg)(state, to_device(batch, dev))
+        metrics = (make_step or make_train_step)(cfg)(state,
+                                                     to_device(batch, dev))
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in state.model.named_parameters()
                  if p.grad is not None}
@@ -2853,7 +2887,7 @@ def train_step_parity(torch, label, cfg, sd, batch, trunk_l2=False):
                            f"get grads")
     worst, worst_name, worst_l2, l2_name = 0.0, "", 0.0, ""
     for n in gc:
-        if trunk_l2 and n.startswith("backbone."):
+        if (trunk_l2 and n.startswith("backbone.")) or n in l2_leaves:
             rel = (gg[n] - gc[n]).norm().item() / max(gc[n].norm().item(),
                                                       1e-30)
             if rel > worst_l2:
@@ -2865,8 +2899,11 @@ def train_step_parity(torch, label, cfg, sd, batch, trunk_l2=False):
             worst, worst_name = rel, n
     stat_err = max([(sg[n] - sc[n]).float().abs().max().item()
                     for n in sc] or [0.0])
-    trunk = (f"; trunk leaves worst ||card-cpu||/||g|| = {worst_l2:.3e} "
-             f"({l2_name}; tol {TRUNK_L2_RTOL})" if trunk_l2 else "")
+    held = ("trunk leaves" if not l2_leaves else
+            f"{'trunk and ' if trunk_l2 else ''}{', '.join(l2_leaves)}")
+    trunk = (f"; {held} worst ||card-cpu||/||g|| = {worst_l2:.3e} "
+             f"({l2_name}; tol {TRUNK_L2_RTOL})"
+             if trunk_l2 or l2_leaves else "")
     log(f"  {label} fp32 train step: loss card {lg:.6f} cpu {lc:.6f}; "
         f"{len(gc)} gradient leaves, worst max|card-cpu|/max|g| = "
         f"{worst:.3e} ({worst_name}; tol {GRAD_RTOL}){trunk}; BN statistics "
@@ -3602,6 +3639,473 @@ def phase_data_train(torch, results, root):
     results.setdefault("phase_launches", {})["27"] = launches
 
 
+# --- phases 28-31: the temporal path (history BEV, streaming, clips) ---
+
+TEMPORAL_FRAMES = 4      # frames a scene streamed at full width (2 scenes)
+TEMPORAL_YAW_DEG = 3.0   # the ego's yaw change a frame
+TEMPORAL_STEP_M = 2.0    # the ego's translation a frame, metres
+# a nearest-rotation source coordinate this near a .5 tie may round either
+# way under another cos / sin (tests/test_torch_temporal.py)
+ROT_TIE_PX = 6.1e-5
+TEMPORAL_TRAIN = (("turbo_occ", 2), ("turbo_occ", 4), ("base_occ", 2))
+# the dense clip step's BEV query table is not determined by fp32 at
+# tiny_turbo_occ's size: 1e-5 of noise on the images flips bf16 roundings
+# of the lift's features and moves its gradient by 7.2 % of max|g| on the
+# CPU (the single-frame step's: 1.5 %; every other leaf <= 3.4 %; the
+# gather clip step's worst leaf 1.1 %), so it is held in relative L2
+# (TRUNK_L2_RTOL), as phase 21 holds the gather config's trunk
+CLIP_L2_LEAVES = ("head.bev_embedding",)
+
+
+def scene_poses(n, scene):
+    """n ego2global poses of a scene: the ego drives TEMPORAL_STEP_M ahead
+    and turns TEMPORAL_YAW_DEG left a frame."""
+    poses, x, y, yaw = [], 100.0 * scene, 50.0, 10.0 * scene
+    for _ in range(n):
+        a = np.deg2rad(yaw)
+        p = np.eye(4)
+        p[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        p[:2, 3] = x, y
+        poses.append(p)
+        x, y = x + TEMPORAL_STEP_M * np.cos(a), y + TEMPORAL_STEP_M * np.sin(a)
+        yaw += TEMPORAL_YAW_DEG
+    return poses
+
+
+def stream_frames(m, scenes, n, rng, hw):
+    """``scenes`` x ``n`` frames (uint8 (1, cams, h, w, 3) images, the ring
+    rig, scene token, ego2global pose) in stream order."""
+    e2i = ring_rig(m, 1)
+    return [(rng.randint(0, 256, (1, m.num_cams, *hw, 3), dtype=np.uint8),
+             e2i, f"scene-{s}", pose)
+            for s in range(scenes) for pose in scene_poses(n, s)]
+
+
+def clip_batch(cfg, T, rng, hw, uint8, padded=0):
+    """A B = 1 clip of T frames on the ring rig, as `data.clips.ClipDataset`
+    makes one: its first ``padded`` + 1 frames the same frame (a scene
+    younger than the queue, prev_exists False), then a new frame and pose
+    each; each transition's alignment from `clip_alignment`; random labels
+    for the last frame.  Images uint8 (augmented on the card) or float
+    (taken as they are)."""
+    from occnet_tpu_torch.data.clips import clip_alignment
+    m = cfg.model
+    idx = [0] * (padded + 1) + list(range(1, T - padded))
+    poses = scene_poses(T - padded, 0)
+    if uint8:
+        imgs = rng.randint(0, 256, (T - padded, m.num_cams, *hw, 3),
+                           dtype=np.uint8)
+    else:
+        imgs = rng.randn(T - padded, m.num_cams, *hw, 3).astype(np.float32)
+    rot, shifts = np.zeros(T, np.float32), np.zeros((T, 2), np.float32)
+    exists = np.zeros(T, bool)
+    for t in range(1, T):
+        if idx[t] != idx[t - 1]:
+            exists[t] = True
+            rot[t], shifts[t] = clip_alignment(poses[idx[t - 1]],
+                                               poses[idx[t]], m.pc_range,
+                                               (m.bev_h, m.bev_w))
+    grid = (1, m.bev_w, m.bev_h, m.pillar_h)
+    return {"img": imgs[idx][None],
+            "ego2img": np.repeat(ring_rig(m, 1)[:, None], T, axis=1),
+            "rot_deg": rot[None], "shifts": shifts[None],
+            "prev_exists": exists[None], "shift": shifts[-1:].copy(),
+            "voxel_semantics": rng.randint(0, m.num_classes, grid),
+            "voxel_flow": rng.randn(*grid, 2).astype(np.float32)}
+
+
+def temporal_small_cfg(name):
+    """tiny_turbo_occ / tiny_occ in fp32 with nothing random in a step and
+    no clipping (as `small_train_cfg`); tiny_occ with the static top-K
+    sized for the ring rig, as phase 10."""
+    from occnet_tpu_torch import geometry
+    from occnet_tpu_torch.config import apply_overrides, get_config
+    cfg = apply_overrides(get_config(name), {
+        "model.compute_dtype": "float32", "model.use_grid_mask": "false",
+        "model.encoder.ffn_dropout": "0", "model.encoder.tsa.dropout": "0",
+        "model.encoder.sca.dropout": "0", "optim.grad_clip_norm": "1e9"})
+    if cfg.model.encoder.mode == "gather":
+        k = geometry.calibration_topk(cfg.model, ring_rig(cfg.model, 1))
+        cfg = apply_overrides(cfg, {"model.encoder.sca.max_queries_per_cam":
+                                    k})
+    return cfg
+
+
+def certificates(torch, outs):
+    return sum(int(v) for k, v in outs.items() if k.endswith("_overflow"))
+
+
+def phase_temporal_parity(torch):
+    """Phase 28: the rotation's source indices at full width, then
+    tiny_turbo_occ and tiny_occ (fp32) card vs CPU: a 2-scene x 3-frame
+    stream (history BEV and logits) and one clip train step (T = 3, one
+    padded frame)."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.ops.transforms import (nearest_source_index,
+                                                 rotation_cos_sin,
+                                                 rotation_source)
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training.temporal import (StreamingInferenceState,
+                                                    make_temporal_train_step)
+    rng = np.random.RandomState(20)
+    ang = np.concatenate([rng.uniform(-5, 5, 200), rng.uniform(-180, 180, 50),
+                          [0.0, 90.0, -90.0, 180.0]]).astype(np.float32)
+    hw, c = (200, 200), (100.0, 100.0)
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        # the angles on each device: cos / sin taken there
+        idx, valid = nearest_source_index(
+            *rotation_cos_sin(torch.from_numpy(ang).to(dev)), hw, c)
+        maps[dev] = torch.where(valid, idx, -1).cpu()
+    sx, sy = rotation_source(*rotation_cos_sin(torch.from_numpy(ang)), hw, c)
+    tie = torch.minimum((sx - sx.floor() - 0.5).abs(),
+                        (sy - sy.floor() - 0.5).abs()).reshape(len(ang), -1)
+    differ = maps["cuda"] != maps["cpu"]
+    near = tie < ROT_TIE_PX
+    log(f"  rotation source indices at 200 x 200, {len(ang)} angles: "
+        f"{int(differ.sum())} cells differ card vs CPU, "
+        f"{int((differ & ~near).sum())} of them farther than {ROT_TIE_PX} "
+        f"px from a .5 tie ({int(near.sum())} cells that near)")
+    if (differ & ~near).any():
+        raise RuntimeError("the rotation's source indices differ between "
+                           "card and CPU away from a tie")
+
+    for name in ("tiny_turbo_occ", "tiny_occ"):
+        cfg = temporal_small_cfg(name)
+        m = cfg.model
+        sd = from_jax_variables(randomize_variables(
+            init_jax_style_variables(cfg, seed=1), seed=2))
+        frames = stream_frames(m, 2, 3, rng, (m.img_h, m.img_w))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = StreamingInferenceState(Predictor(cfg, sd, dev))
+            runs[dev] = []
+            for img, e2i, scene, pose in frames:
+                outs = state.step(img, e2i, scene, pose)
+                runs[dev].append((outs["bev_embed"].float().cpu(),
+                                  outs["occ"].float().cpu(),
+                                  certificates(torch, outs)))
+        bev_err = max((g[0] - c_[0]).abs().max().item()
+                      for g, c_ in zip(runs["cuda"], runs["cpu"]))
+        err = max((g[1] - c_[1]).abs().max().item()
+                  for g, c_ in zip(runs["cuda"], runs["cpu"]))
+        agree = min((g[1].argmax(-1) == c_[1].argmax(-1)).float().mean()
+                    .item() for g, c_ in zip(runs["cuda"], runs["cpu"]))
+        certs = [r[2] for r in runs["cuda"] + runs["cpu"]]
+        log(f"  {name} fp32 stream, 2 scenes x 3 frames (yaw "
+            f"{TEMPORAL_YAW_DEG} deg, {TEMPORAL_STEP_M} m a frame): max"
+            f"|card-cpu| history BEV {bev_err:.3e}, logits {err:.3e} (atol "
+            f"{LOGIT_ATOL}), worst argmax agreement {agree:.5f}; "
+            f"certificates {certs}")
+        if not (bev_err <= LOGIT_ATOL and err <= LOGIT_ATOL and agree >= 0.99
+                and not any(certs)):
+            raise RuntimeError(f"{name}: card and CPU streams disagree")
+        batch = clip_batch(cfg, 3, rng, (m.img_h, m.img_w), uint8=False,
+                           padded=1)
+        dense = m.encoder.mode == "dense"
+        train_step_parity(torch, f"{name} clip (T = 3, prev_exists "
+                                 f"{batch['prev_exists'][0].tolist()})",
+                          cfg, sd, batch, trunk_l2=not dense,
+                          make_step=make_temporal_train_step,
+                          l2_leaves=CLIP_L2_LEAVES if dense else ())
+
+
+def phase_temporal_serve(torch, results):
+    """Phase 29: turbo_occ and base_occ stream 2 scenes x TEMPORAL_FRAMES
+    full-width uint8 frames through `StreamingInferenceState`: launches a
+    frame as single-frame requests, certificates 0, the first frame of a
+    scene equal to a single-frame request and the later ones not, host ms a
+    frame, the align / forward split by CUDA events, the single-frame
+    latency of the same frames in turns (stream, single, single, stream),
+    peak memory."""
+    from occnet_tpu_torch.config import get_config
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.ops.lift_cuda import LIFT
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.ops.tsa import TAP
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training.temporal import StreamingInferenceState
+    launches_all = {}
+    for name in ("turbo_occ", "base_occ"):
+        cfg = get_config(name)
+        m = cfg.model
+        pred = Predictor(cfg, from_jax_variables(
+            init_jax_style_variables(cfg, seed=0)), "cuda")
+        frames = stream_frames(m, 2, TEMPORAL_FRAMES,
+                               np.random.RandomState(21), (900, 1600))
+        if m.encoder.mode == "dense":
+            kernels = {"lift": LIFT, "tap": TAP}
+            per_frame = {"lift": m.num_feature_levels,
+                         "tap": m.encoder.num_layers}
+        else:
+            ks = pred.model.head.transformer.encoder.layer0.cross_attn \
+                .topk_sizes(m.bev_h * m.bev_w)
+            kernels = {"msda": MSDA}
+            per_frame = {"msda": m.encoder.num_layers
+                         * (1 + (len(set(ks)) or 1))}
+        warm = StreamingInferenceState(pred)          # first use of the ops
+        for img, e2i, scene, pose in frames[:2]:
+            warm.step(img, e2i, scene, pose)
+        torch.cuda.synchronize()
+
+        def stream_pass(count):
+            state = StreamingInferenceState(pred)
+            host, split, occ, cert = [], [], [], 0
+            if count:
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels.values():
+                    k.launches = 0
+            for img, e2i, scene, pose in frames:
+                ev = {n: torch.cuda.Event(enable_timing=True)
+                      for n in ("start", "end")}
+
+                def mark(label):
+                    ev[label] = torch.cuda.Event(enable_timing=True)
+                    ev[label].record()
+
+                t = time.perf_counter()
+                ev["start"].record()
+                outs = state.step(img, e2i, scene, pose, mark=mark)
+                ev["end"].record()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+                a = ev.get("align")
+                split.append(((ev["start"].elapsed_time(a) if a else 0.0),
+                              (a or ev["start"]).elapsed_time(ev["end"])))
+                occ.append(outs["occ"])
+                cert += certificates(torch, outs)
+            launches = ({k: v.launches for k, v in kernels.items()}
+                        if count else None)
+            return host, split, occ, cert, launches
+
+        def single_pass():
+            host, occ = [], []
+            for img, e2i, _, _ in frames:
+                t = time.perf_counter()
+                occ.append(pred.infer(img, e2i)["occ"])
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            return host, occ
+
+        s1, sp1, occ_s, cert, launches = stream_pass(True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        p1, occ_p = single_pass()
+        p2, _ = single_pass()
+        s2, sp2, _, _, _ = stream_pass(False)
+        n = len(frames)
+        want = {k: v * n for k, v in per_frame.items()}
+        first = [i % TEMPORAL_FRAMES == 0 for i in range(n)]
+        same = [torch.equal(a, b) for a, b in zip(occ_s, occ_p)]
+        hist = [i for i in range(n) if not first[i]]
+        log(f"  {name} stream, 2 scenes x {TEMPORAL_FRAMES} frames (yaw "
+            f"{TEMPORAL_YAW_DEG} deg and {TEMPORAL_STEP_M} m a frame): "
+            f"launches {launches} (expected {want}); certificates {cert}; "
+            f"logits equal to the single-frame request {same}; peak "
+            f"allocated {peak:.3f} GiB; card {nvidia_smi()}")
+        for label, h in (("stream", s1), ("single", p1), ("single", p2),
+                         ("stream", s2)):
+            log(f"    {label} host ms a frame {[round(x, 3) for x in h]}, "
+                f"frames with history mean "
+                f"{float(np.mean([h[i] for i in hist])):.3f}")
+        for label, sp in (("first", sp1), ("second", sp2)):
+            log(f"    {label} stream by CUDA events, frames with history: "
+                f"align ms {[round(sp[i][0], 4) for i in hist]}, forward ms "
+                f"{[round(sp[i][1], 3) for i in hist]}")
+        if launches != want or cert != 0 \
+                or same != first:
+            raise RuntimeError(f"{name}: the streamed run is wrong")
+        launches_all.update(launches)
+        del pred, occ_s, occ_p
+        torch.cuda.empty_cache()
+    results.setdefault("phase_launches", {})["29"] = launches_all
+
+
+def phase_temporal_train(torch, results):
+    """Phase 30: clip train steps at full width (bf16, B = 1, config
+    defaults) through the train CLI's temporal step: turbo_occ at T = 2
+    and 4, base_occ at T = 2; 1 warm-up + FULL_TRAIN_STEPS timed steps;
+    finite losses, certificates 0, launches a step (history frames run the
+    forward kernels only), host ms, the CUDA-event split of history /
+    forward / backward / optimizer, peak memory."""
+    from occnet_tpu_torch.config import get_config
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD, LIFT_BWD_INDEX
+    from occnet_tpu_torch.ops.msda import MSDA, MSDA_BWD
+    from occnet_tpu_torch.ops.tsa import TAP, TAP_BWD
+    from occnet_tpu_torch.tools.train import to_device
+    from occnet_tpu_torch.training.temporal import make_temporal_train_step
+    from occnet_tpu_torch.training.train import create_train_state
+    launches_all = {}
+    for name, T in TEMPORAL_TRAIN:
+        cfg = get_config(name)
+        m = cfg.model
+        L, E = m.num_feature_levels, m.encoder.num_layers
+        state = create_train_state(cfg, from_jax_variables(
+            init_jax_style_variables(cfg, seed=0)), "cuda")
+        batch = to_device(clip_batch(cfg, T, np.random.RandomState(22),
+                                     (900, 1600), uint8=True), "cuda")
+        step_fn = make_temporal_train_step(cfg, seed=0)
+        metrics = step_fn(state, batch)                    # warm-up
+        torch.cuda.synchronize()
+        if m.encoder.mode == "dense":
+            kernels = {"lift": LIFT, "tap": TAP, "lift_bwd": LIFT_BWD,
+                       "lift_bwd_index": LIFT_BWD_INDEX, "tap_bwd": TAP_BWD}
+            per_step = {"lift": L * T, "tap": E * T, "lift_bwd": L,
+                        "lift_bwd_index": L, "tap_bwd": E}
+        else:
+            ks = state.model.head.transformer.encoder.layer0.cross_attn \
+                .topk_sizes(m.bev_h * m.bev_w)
+            per_layer = 1 + (len(set(ks)) or 1)
+            kernels = {"msda": MSDA, "msda_bwd": MSDA_BWD}
+            per_step = {"msda": E * per_layer * T, "msda_bwd": E * per_layer}
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        host, phases = [], []
+        for _ in range(FULL_TRAIN_STEPS):
+            ev = {"start": torch.cuda.Event(enable_timing=True)}
+
+            def mark(label):
+                ev[label] = torch.cuda.Event(enable_timing=True)
+                ev[label].record()
+
+            t = time.perf_counter()
+            ev["start"].record()
+            metrics = step_fn(state, batch, mark)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+            order = ("start", "history", "forward", "backward", "optimizer")
+            phases.append({b: ev[a].elapsed_time(ev[b])
+                           for a, b in zip(order, order[1:])})
+            vals = {k: float(v) for k, v in metrics.items()}
+            log(f"  {name} T = {T} step {state.step - 1}: loss "
+                f"{vals['loss']:.4f} gnorm {vals['grad_norm']:.3f} "
+                f"cert_overflow {int(vals['cert_overflow'])}; host "
+                f"{host[-1]:.3f} ms; device "
+                + " / ".join(f"{k} {v:.3f}" for k, v in phases[-1].items())
+                + " ms")
+            if not (np.isfinite(vals["loss"])
+                    and np.isfinite(vals["grad_norm"])
+                    and vals["cert_overflow"] == 0):
+                raise RuntimeError(f"{name} T = {T}: non-finite loss or a "
+                                   f"nonzero certificate")
+        launches = {k: v.launches for k, v in kernels.items()}
+        want = {k: n * FULL_TRAIN_STEPS for k, n in per_step.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mean = {k: sum(p[k] for p in phases) / FULL_TRAIN_STEPS
+                for k in phases[0]}
+        log(f"  {name} T = {T}: {FULL_TRAIN_STEPS} clip steps, host ms "
+            f"{[round(x, 3) for x in host]}, mean "
+            f"{sum(host) / FULL_TRAIN_STEPS:.3f}; device mean "
+            + " / ".join(f"{k} {v:.3f}" for k, v in mean.items())
+            + f" ms; peak allocated {peak:.3f} GiB; launches {launches} "
+            f"(expected {want}); card {nvidia_smi()}")
+        if launches != want:
+            raise RuntimeError(f"{name} T = {T}: clip step launch counts "
+                               f"{launches} != {want}")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        del state, batch, step_fn
+        torch.cuda.empty_cache()
+    results.setdefault("phase_launches", {})["30"] = launches_all
+
+
+def phase_temporal_data(torch, results, root):
+    """Phase 31: the test CLI with --video --eval --format-only on base_occ
+    over the data root's 2 scenes, then the train CLI with --temporal-queue
+    2 on turbo_occ for 2 steps and one more resumed."""
+    from occnet_tpu_torch.config import apply_overrides, get_config
+    from occnet_tpu_torch.data.nuscenes import NuSceneOccDataset
+    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD, LIFT_BWD_INDEX
+    from occnet_tpu_torch.ops.msda import MSDA
+    from occnet_tpu_torch.ops.ray_march_vec import FAN, FAN_RENDER
+    from occnet_tpu_torch.ops.tsa import TAP, TAP_BWD
+    from occnet_tpu_torch.tools import test as test_cli
+    from occnet_tpu_torch.tools import train as train_cli
+    cfg = apply_overrides(get_config("base_occ"), {"data.data_root": root})
+    m = cfg.model
+    kernels = {"msda": MSDA, "fan": FAN_RENDER, "fan_raw": FAN}
+    for k in kernels.values():
+        k.launches = 0
+    marks = FrameMarks(torch, kernels)
+    t = time.perf_counter()
+    summary = test_cli.main([
+        "--config", "base_occ", "--video", "--eval", "--format-only",
+        "--work-dir", os.path.join(root, "work_video"), "--out",
+        os.path.join(root, "video.gz"), "--set", f"data.data_root={root}",
+        "data.val_ann=infos_val.pkl"], mark=marks)
+    wall = time.perf_counter() - t
+    launches = {k: v.launches for k, v in kernels.items()}
+    frames = marks.frames()
+    ks = summary["per_cam_topk"]
+    want = {"msda": MINISET_FRAMES * m.encoder.num_layers
+            * (1 + len(set(ks))), "fan": 2 * MINISET_FRAMES, "fan_raw": 0}
+    scores = summary["scores"]
+    ds = NuSceneOccDataset(cfg.data, os.path.join(root, "infos_val.pkl"),
+                           training=False)
+    gt_iou = gt_ray_iou(torch, cfg, ds.get_sample(0), "cuda")
+    log(f"  test CLI --video (base_occ, {MINISET_FRAMES} frames in 2 scenes, "
+        f"--eval --format-only) in {wall:.1f} s: auto top-K per camera {ks},"
+        f" certificate {summary['overflow']}, scores {scores}; GT vs GT "
+        f"RayIoU {gt_iou}; launches {launches} (expected {want}); card "
+        f"{nvidia_smi()}")
+    for i, f in enumerate(frames):
+        log(f"    frame {i}: " + ", ".join(
+            f"{st} {f[st][0]:.3f} / {f[st][1]:.3f}" for st in
+            ("align", "forward", "render", "counts") if st in f)
+            + " ms (CUDA events / host clock)")
+    if summary["overflow"] != 0 or launches != want \
+            or len(summary["tokens"]) != MINISET_FRAMES \
+            or not all(np.isfinite(scores[k]) and 0 <= scores[k] <= 1
+                       for k in ("RayIoU", "RayIoU@1", "RayIoU@2",
+                                 "RayIoU@4")) \
+            or abs(gt_iou - 1) > 1e-9 \
+            or ["align" in f for f in frames] != [False, True, False, True]:
+        raise RuntimeError("the test CLI's --video run is wrong")
+    results.setdefault("phase_launches", {})["31"] = dict(launches)
+
+    work = os.path.join(root, "work_temporal")
+    argv = ["--config", "turbo_occ", "--work-dir", work, "--temporal-queue",
+            "2", "--set", f"data.data_root={root}",
+            "data.train_ann=infos_train.pkl"]
+    kernels = {"lift": LIFT, "tap": TAP, "lift_bwd": LIFT_BWD,
+               "lift_bwd_index": LIFT_BWD_INDEX, "tap_bwd": TAP_BWD}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    history = train_cli.main(argv + ["--max-steps", "2"])
+    wall = time.perf_counter() - t
+    tl = {k: v.launches for k, v in kernels.items()}
+    L, E = m.num_feature_levels, m.encoder.num_layers
+    want = {"lift": 2 * 2 * L, "tap": 2 * 2 * E, "lift_bwd": 2 * L,
+            "lift_bwd_index": 2 * L, "tap_bwd": 2 * E}
+    log(f"  train CLI --temporal-queue 2 (turbo_occ, 2 steps) in {wall:.1f} "
+        f"s: {history}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+        f"{tl} (expected {want})")
+    ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
+    if [h["step"] for h in history] != [0, 1] or tl != want \
+            or not all(np.isfinite(h["loss"]) and h["cert_overflow"] == 0
+                       for h in history) or ck["step"] != 2:
+        raise RuntimeError("the train CLI's --temporal-queue run is wrong")
+    LIFT_BWD.launches = LIFT.launches = 0
+    resumed = train_cli.main(argv + ["--resume", "--max-steps", "3"])
+    ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
+    log(f"  resumed: {resumed}; lift {LIFT.launches} / lift_bwd "
+        f"{LIFT_BWD.launches} launches; checkpoint step {ck['step']}")
+    if [h["step"] for h in resumed] != [2] or ck["step"] != 3 \
+            or not np.isfinite(resumed[0]["loss"]) \
+            or (LIFT.launches, LIFT_BWD.launches) != (2 * L, L):
+        raise RuntimeError("the train CLI did not resume its clip training")
+    for k, v in tl.items():
+        results["phase_launches"]["31"][k] = v
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3720,6 +4224,24 @@ def main():
             fn(torch, results, root)
             torch.cuda.empty_cache()
             log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
+        for n, label, run in (
+                (28, "temporal parity: the rotation at full width; "
+                     "tiny_turbo_occ and tiny_occ fp32 streams and clip "
+                     "train steps, card vs CPU",
+                 lambda: phase_temporal_parity(torch)),
+                (29, "temporal serve: turbo_occ and base_occ streams, full "
+                     "width, bf16", lambda: phase_temporal_serve(torch,
+                                                                 results)),
+                (30, "temporal train: clip steps at full width, bf16, B = 1",
+                 lambda: phase_temporal_train(torch, results)),
+                (31, "temporal data root: the test CLI --video on base_occ, "
+                     "the train CLI --temporal-queue 2 on turbo_occ",
+                 lambda: phase_temporal_data(torch, results, root))):
+            log(f"[{n} {label}]")
+            t = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3796,15 +4318,18 @@ def main():
                       "occnet_tpu/ops/deform_conv.py:34",
              **results["dcn_bwd"]),
     ]
-    # launches on the data path (phases 25-27), by phase, for the kernels
-    # it runs (each phase zeroes the counts before its run)
+    # launches on the data path (phases 25-27) and the temporal path
+    # (phases 29-31), by phase, for the kernels each runs (each phase zeroes
+    # the counts before its run)
     alias = {"fan": "ray_march_fan", "dcn_conv": "dcn_conv",
              "dcn_sample": "dcn"}
     for phase, counts in results["phase_launches"].items():
+        key = ("data_path_launches" if int(phase) <= 27
+               else "temporal_launches")
         for kname, n in counts.items():
             for k in kernels:
                 if k["name"] == alias.get(kname, kname) and n:
-                    k.setdefault("data_path_launches", {})[phase] = n
+                    k.setdefault(key, {})[phase] = n
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     for k in kernels:

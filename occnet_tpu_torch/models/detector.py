@@ -2,7 +2,8 @@
 only) -> image trunk (ResNet-50/101, optionally with DCNv2 stages) -> FPN ->
 OccHead.  In DCN window mode the outputs carry the trunk's certificate
 `dcn_window_overflow` (0-d int64), beside the gather encoder's
-`sca_topk_overflow`."""
+`sca_topk_overflow`, with ``only_bev`` too (history frames are checked as
+well)."""
 
 from __future__ import annotations
 
@@ -58,14 +59,21 @@ class OccNet(nn.Module):
                 for f in feats], overflow
 
     def forward(self, img: torch.Tensor, ego2img: torch.Tensor,
-                train: bool = False,
+                prev_bev: Optional[torch.Tensor] = None,
+                shift_ref_2d: Optional[torch.Tensor] = None,
+                only_bev: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """img (B, cams, H, W, 3) normalised, ego2img (B, cams, 4, 4).
-        ``train`` turns on the grid mask, dropout and batch statistics, with
-        every random draw taken from ``generator`` (on the model's device)."""
+        ``prev_bev`` (B, Q, C) is the history BEV aligned into this frame
+        and ``shift_ref_2d`` (B, Q, 1, 2) the shifted TSA reference of its
+        slot (`training/temporal.py`).  ``only_bev`` returns the BEV
+        ("bev_embed") and the certificates alone.  ``train`` turns on the
+        grid mask, dropout and batch statistics, with every random draw
+        taken from ``generator`` (on the model's device)."""
         feats, overflow = self.extract_img_feat(img, train, generator)
-        outs = self.head(feats, ego2img, train, generator)
+        outs = self.head(feats, ego2img, prev_bev, shift_ref_2d, only_bev,
+                         train, generator)
         if overflow is not None:
             outs["dcn_window_overflow"] = overflow
         return outs

@@ -8,7 +8,12 @@ either mode of the JAX package:
   pillar reference points projected into the cameras once per forward
   (`geometry.py`) and shared by every layer.
 
-Single frame only: each TSA layer attends over [query, query].
+Without a history BEV each TSA layer attends over [query, query].  With one
+(the temporal path), the queue [prev_bev, initial query] is built once
+before the layer loop and shared by every layer; in gather mode the prev
+slot is sampled at the shifted reference points (``shift_ref_2d``), while
+the dense tap attention has no reference points and ignores the shift, as
+the JAX package's `DenseTemporalSelfAttention` does.
 """
 
 from __future__ import annotations
@@ -130,13 +135,18 @@ class BEVFormerEncoder(nn.Module):
                 persistent=False)
 
     def gather_geometry(self, B: int, ego2img: torch.Tensor,
-                        img_spatial_shapes: Sequence[Tuple[int, int]]
+                        img_spatial_shapes: Sequence[Tuple[int, int]],
+                        shift_ref_2d: Optional[torch.Tensor] = None
                         ) -> tuple:
         """The layer-invariant geometry of gather mode: TSA's hybrid
-        reference (B, 2, Q, 1, 2) and the pillar anchors' camera projection
-        (ref_cam, bev_mask), computed once per forward."""
+        reference [shift_ref_2d, ref_2d] (B, 2, Q, 1, 2), the prev slot's
+        points shifted when ``shift_ref_2d`` (broadcastable to (B, Q, 1, 2))
+        is given, and the pillar anchors' camera projection (ref_cam,
+        bev_mask), computed once per forward."""
         ref_2d = self.ref_2d[None].expand(B, *self.ref_2d.shape)
-        hybrid = torch.stack([ref_2d, ref_2d], dim=1)
+        shifted = (ref_2d if shift_ref_2d is None
+                   else shift_ref_2d.float().expand(B, *self.ref_2d.shape))
+        hybrid = torch.stack([shifted, ref_2d], dim=1)
         ref_cam, bev_mask = project_bev_points_to_cameras(
             self.ref_3d, self.pc_range, ego2img, self.img_hw)
         return (hybrid, ref_cam, bev_mask, self.bev_hw,
@@ -145,24 +155,33 @@ class BEVFormerEncoder(nn.Module):
     def forward(self, bev_query: torch.Tensor, value: torch.Tensor,
                 bev_pos: torch.Tensor, ego2img: Optional[torch.Tensor] = None,
                 img_spatial_shapes: Sequence[Tuple[int, int]] = (),
+                prev_bev: Optional[torch.Tensor] = None,
+                shift_ref_2d: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """bev_query/bev_pos (B, Q, C); value the lift (B, L, Z, Q, C) in
         dense mode, the flattened camera pyramid (B, cams, V, C) with
-        ``ego2img`` and ``img_spatial_shapes`` in gather mode.  Single frame
-        (no history BEV).  Dropout in training draws its masks from
-        ``generator``.  Returns (bev (B, Q, C), sca_topk_overflow summed over
-        the layers as the JAX inference entry sums the sown values; None in
-        dense mode)."""
+        ``ego2img`` and ``img_spatial_shapes`` in gather mode.  ``prev_bev``
+        (B, Q, C) is the aligned history BEV (None: single frame) and
+        ``shift_ref_2d`` (B, Q, 1, 2) the prev slot's shifted reference
+        points (gather mode only).  Dropout in training draws its masks
+        from ``generator``.  Returns (bev (B, Q, C), sca_topk_overflow
+        summed over the layers as the JAX inference entry sums the sown
+        values; None in dense mode)."""
         geometry = None
         if self.cfg.mode == "gather":
             geometry = self.gather_geometry(bev_query.shape[0], ego2img,
-                                            img_spatial_shapes)
+                                            img_spatial_shapes, shift_ref_2d)
+        prev_queue = None
+        if prev_bev is not None:
+            prev_queue = torch.stack([prev_bev.to(bev_query.dtype),
+                                      bev_query], dim=1)
         total = None
         for lid in range(self.num_layers):
             bev_query, overflow = getattr(self, f"layer{lid}")(
-                bev_query, value, bev_pos, None, geometry, train, generator)
+                bev_query, value, bev_pos, prev_queue, geometry, train,
+                generator)
             if overflow is not None:
                 total = overflow if total is None else total + overflow
         return bev_query, total

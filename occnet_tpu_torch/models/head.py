@@ -26,14 +26,25 @@ class OccHead(nn.Module):
         self.transformer = TransformerOcc(c, dtype)
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor],
-                ego2img: torch.Tensor, train: bool = False,
+                ego2img: torch.Tensor, prev_bev: Optional[torch.Tensor] = None,
+                shift_ref_2d: Optional[torch.Tensor] = None,
+                only_bev: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
+        """-> {"bev_embed", "occ", "flow"} (and the certificate); with
+        ``only_bev`` (the history-BEV path) the BEV and the certificate
+        alone: the decoder and the heads do not run."""
         bev_pos = self.positional_encoding(mlvl_feats[0].shape[0])
-        bev_embed, occ, flow, overflow = self.transformer(
-            mlvl_feats, self.bev_embedding, bev_pos, ego2img, train,
-            generator)
-        outs = {"bev_embed": bev_embed, "occ": occ, "flow": flow}
+        if only_bev:
+            bev_embed, overflow = self.transformer.get_bev_features(
+                mlvl_feats, self.bev_embedding, bev_pos, ego2img, prev_bev,
+                shift_ref_2d, train, generator)
+            outs = {"bev_embed": bev_embed}
+        else:
+            bev_embed, occ, flow, overflow = self.transformer(
+                mlvl_feats, self.bev_embedding, bev_pos, ego2img, prev_bev,
+                shift_ref_2d, train, generator)
+            outs = {"bev_embed": bev_embed, "occ": occ, "flow": flow}
         if overflow is not None:
             outs["sca_topk_overflow"] = overflow
         return outs

@@ -131,12 +131,16 @@ class TransformerOcc(nn.Module):
 
     def get_bev_features(self, mlvl_feats: Sequence[torch.Tensor],
                          bev_queries: torch.Tensor, bev_pos: torch.Tensor,
-                         ego2img: torch.Tensor, train: bool = False,
+                         ego2img: torch.Tensor,
+                         prev_bev: Optional[torch.Tensor] = None,
+                         shift_ref_2d: Optional[torch.Tensor] = None,
+                         train: bool = False,
                          generator: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Dense: shared value projection on the camera maps (it commutes
         with the channel-linear lift), the lift, then the encoder.  Gather:
-        the flattened pyramid into the encoder.  -> ((B, Q, C),
+        the flattened pyramid into the encoder.  ``prev_bev`` /
+        ``shift_ref_2d`` go to the encoder's TSA.  -> ((B, Q, C),
         sca_topk_overflow or None)."""
         c = self.cfg
         b = mlvl_feats[0].shape[0]
@@ -145,13 +149,14 @@ class TransformerOcc(nn.Module):
         if c.encoder.mode == "gather":
             value, shapes = self.flatten_mlvl_feats(mlvl_feats)
             return self.encoder(queries, value, bev_pos, ego2img, shapes,
-                                train, generator)
+                                prev_bev, shift_ref_2d, train, generator)
         feats = [self.shared_value_proj(f)
                  for f in self.flat_embed(mlvl_feats)]
         lifted, _count = lift_and_average(
             feats, ego2img, c.pc_range, c.encoder.num_points_in_pillar,
             (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype)
-        return self.encoder(queries, lifted, bev_pos, train=train,
+        return self.encoder(queries, lifted, bev_pos, prev_bev=prev_bev,
+                            shift_ref_2d=shift_ref_2d, train=train,
                             generator=generator)
 
     def decode_voxels(self, bev_embed: torch.Tensor, train: bool = False
@@ -168,13 +173,17 @@ class TransformerOcc(nn.Module):
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor],
                 bev_queries: torch.Tensor, bev_pos: torch.Tensor,
-                ego2img: torch.Tensor, train: bool = False,
+                ego2img: torch.Tensor,
+                prev_bev: Optional[torch.Tensor] = None,
+                shift_ref_2d: Optional[torch.Tensor] = None,
+                train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
         """-> (bev_embed, occ logits, flow, sca_topk_overflow or None)."""
         bev_embed, overflow = self.get_bev_features(
-            mlvl_feats, bev_queries, bev_pos, ego2img, train, generator)
+            mlvl_feats, bev_queries, bev_pos, ego2img, prev_bev, shift_ref_2d,
+            train, generator)
         vox = self.decode_voxels(bev_embed, train)
         return (bev_embed, self.predicter(vox), self.flow_predicter(vox),
                 overflow)

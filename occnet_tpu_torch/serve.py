@@ -64,20 +64,25 @@ class Predictor:
         self.dcn_window_overflow: Optional[int] = None
 
     @torch.inference_mode()
-    def infer(self, images: ArrayLike, ego2img: ArrayLike
+    def infer(self, images: ArrayLike, ego2img: ArrayLike,
+              prev_bev: Optional[torch.Tensor] = None,
+              shift_ref_2d: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
-        """The model's outputs for a request (occ logits, flow and the
-        certificates, on the device), without checking the certificates and
-        without waiting for the device: for a caller that sums the
-        certificates over many requests (`tools.test`)."""
+        """The model's outputs for a request (bev_embed, occ logits, flow
+        and the certificates, on the device), without checking the
+        certificates and without waiting for the device: for a caller that
+        sums the certificates over many requests (`tools.test`) or streams
+        a scene (`training.temporal.StreamingInferenceState`, which passes
+        the aligned history BEV and the shifted TSA reference)."""
         imgs = torch.as_tensor(images).to(self.device, non_blocking=True)
-        e2i = torch.as_tensor(ego2img).to(self.device, torch.float32)
+        e2i = torch.as_tensor(ego2img).to(self.device, torch.float32,
+                                          non_blocking=True)
         x = self.normalize(imgs)
         m = self.cfg.model
         if tuple(x.shape[-3:-1]) != (m.img_h, m.img_w):
             raise ValueError(f"padded images are {tuple(x.shape[-3:-1])}, "
                              f"the config expects {(m.img_h, m.img_w)}")
-        return self.model(x, e2i)
+        return self.model(x, e2i, prev_bev, shift_ref_2d)
 
     @torch.inference_mode()
     def __call__(self, images: ArrayLike, ego2img: ArrayLike,

@@ -5,6 +5,8 @@
         --out submission.gz --set data.data_root=/data/nuscenes/
     python -m occnet_tpu_torch.tools.test --config tiny_occ --eval \
         --device cpu --set data.data_root=... data.val_ann=...
+    python -m occnet_tpu_torch.tools.test --config turbo_occ --video \
+        --eval --checkpoint work_dirs/torch_turbo_occ/ckpt.pt --set ...
 
 Loads weights (a reference BEVFormerOcc ``.pth`` with ``--torch-checkpoint``,
 else the port's ``ckpt.pt`` from ``--checkpoint`` or ``<work-dir>/ckpt.pt``,
@@ -31,11 +33,19 @@ As in the JAX CLI:
   nonzero sum aborts after the run (``--allow-topk-overflow`` warns
   instead).
 
+With ``--video`` the val split streams in order through
+`training.temporal.StreamingInferenceState`: each frame's BEV is the next
+frame's history within a scene, aligned by the ego motion between their
+poses, and a new scene starts without history (the reference's
+video_test_mode / prev_frame_info).  The auto top-K and the DCN radius
+probe run single-frame on the first frame first, and the certificates of
+every frame are summed as on the single-frame path.
+
 Metric counts stay on the device and are fetched every 32 frames; a
 submission's frames are rendered on the inference device as they come.
-The temporal ``--video`` path, ``--distributed`` and the JAX CLI's choice
-of implementation (``--msda-impl``, host or device normalisation) are not
-carried: the port has one route a device and always uploads uint8.
+``--distributed`` and the JAX CLI's choice of implementation
+(``--msda-impl``, host or device normalisation) are not carried: the port
+has one route a device and always uploads uint8.
 """
 
 from __future__ import annotations
@@ -65,6 +75,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         "<work-dir>/ckpt.pt)")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--format-only", action="store_true")
+    p.add_argument("--video", action="store_true",
+                   help="temporal streaming inference: carry the BEV across "
+                        "the sequential frames of a scene, aligned by the "
+                        "ego motion (the reference's video_test_mode / "
+                        "prev_frame_info)")
     p.add_argument("--out", default="submission.gz")
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--no-auto-topk", dest="auto_topk", action="store_false",
@@ -130,7 +145,8 @@ def main(argv: Optional[Sequence[str]] = None,
     """Runs the CLI; returns {"scores" (with --eval), "tokens", "overflow",
     "per_cam_topk", "dcn_radii", "load_ms"} (the host ms of loading each
     frame).  ``mark(name)``, when given, is called before each frame
-    ("frame") and after its "forward", "render" and "counts" stages."""
+    ("frame") and after its "forward", "render" and "counts" stages (and,
+    with --video, after a streamed frame's "align")."""
     args = parse_args(argv)
     from occnet_tpu_torch.config import apply_overrides, get_config
     from occnet_tpu_torch.convert import (from_jax_variables,
@@ -147,6 +163,7 @@ def main(argv: Optional[Sequence[str]] = None,
     from occnet_tpu_torch.geometry import calibration_topk
     from occnet_tpu_torch.models.head import get_occ
     from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training.temporal import StreamingInferenceState
 
     cfg = get_config(args.config)
     overrides = dict(kv.split("=", 1) for kv in args.set)
@@ -227,6 +244,7 @@ def main(argv: Optional[Sequence[str]] = None,
                   f"--no-auto-dcn-radius pins it)")
     del sd
 
+    stream = StreamingInferenceState(pred) if args.video else None
     origins_by_token = dict(extract_ego_origins(dataset.infos))
     rays = generate_lidar_rays()
     acc = RayMetricAccumulator()
@@ -251,7 +269,11 @@ def main(argv: Optional[Sequence[str]] = None,
                                            int(order[i + depth])))
             if mark:
                 mark("frame")
-            outs = pred.infer(s["img"][None], s["ego2img"][None])
+            if stream is not None:
+                outs = stream.step(s["img"][None], s["ego2img"][None],
+                                   s["scene_token"], s["ego2global"], mark)
+            else:
+                outs = pred.infer(s["img"][None], s["ego2img"][None])
             for k in ("sca_topk_overflow", "dcn_window_overflow"):
                 if outs.get(k) is not None:
                     overflow = overflow + outs[k]

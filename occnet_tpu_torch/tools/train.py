@@ -8,6 +8,8 @@
         --synthetic-data --max-steps 3 --device cpu
     python -m occnet_tpu_torch.tools.train --config turbo_occ \
         --synthetic-geometric 64 --eval-interval-epochs 1
+    python -m occnet_tpu_torch.tools.train --config base_occ \
+        --temporal-queue 4 --set data.data_root=/data/nuscenes/
 
 The device is the card unless ``--device cpu`` says otherwise: without a
 CUDA device the CLI exits and names that flag.  Config selection and dotted
@@ -31,7 +33,15 @@ over the reference's 8 GPUs.  Three data sources:
   off (the task encodes class in colour), and max(8, N // 16) held-out
   scenes (seeds from 0) for the eval hook.
 
-Datasets are shuffled per epoch (epoch = frames // batch steps).
+``--temporal-queue N`` (N > 1) trains the temporal path on the data root's
+N-frame scene clips (`data.clips.ClipDataset`, each part of a concatenated
+train set wrapped on its own): frames 0..N-2 give the history BEV without
+gradients, frame N-1 is supervised (`training.temporal.
+make_temporal_train_step`, the reference's EpochBasedRunner_video).  The
+synthetic sources have no clips and are refused with it; the eval hook stays
+single-frame, as in the JAX CLI.
+
+Datasets are shuffled per epoch (epoch = clips or frames // batch steps).
 ``--eval-interval-epochs K`` scores RayIoU / mAVE / OccScore with
 `training.eval_loop.run_evaluation` every K epochs, and
 ``--eval-dynamic-intervals EPOCH:K,...`` changes K from an epoch on (the
@@ -43,8 +53,8 @@ step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a checkpoint
 under ``--work-dir``; ``--resume`` continues from it.  The exactness
 certificates (`cert_overflow`) are summed on the device and checked at every
 log: a nonzero sum aborts the run.  Returns the logged metrics, evaluations
-included.  Not carried yet: ``--temporal-queue`` (ROADMAP Queue 1 item 2),
-``--distributed`` and ``--profile`` (item 5).
+included.  Not carried yet: ``--distributed`` and ``--profile`` (ROADMAP
+Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -100,10 +110,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="torchvision ResNet state_dict (.pth) to initialise "
                         "the backbone (the reference's "
                         "pretrained='torchvision://resnet50')")
-    for flag, item in (("--temporal-queue", 2), ("--distributed", 5),
-                       ("--profile", 5)):
+    p.add_argument("--temporal-queue", type=int, default=0, metavar="N",
+                   help="train the temporal (video) path on N-frame scene "
+                        "clips of the data root: frames 0..N-2 give the "
+                        "history BEV without gradients, frame N-1 is "
+                        "supervised (0 or 1: single-frame training)")
+    for flag in ("--distributed", "--profile"):
         p.add_argument(flag, default=None, nargs="?", const=True,
-                       help=f"not ported yet (ROADMAP Queue 1 item {item})")
+                       help="not ported yet (ROADMAP Queue 1 item 5)")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
     p.add_argument("--device", default="cuda",
@@ -167,15 +181,20 @@ def main(argv: Optional[Sequence[str]] = None):
     from occnet_tpu_torch.data.sampler import shuffled_shard_indices
     from occnet_tpu_torch.serve import Predictor
     from occnet_tpu_torch.training import checkpoint, eval_loop
+    from occnet_tpu_torch.training.temporal import make_temporal_train_step
     from occnet_tpu_torch.training.train import (create_train_state,
                                                  make_train_step)
 
-    for flag, item in (("temporal_queue", 2), ("distributed", 5),
-                       ("profile", 5)):
+    for flag in ("distributed", "profile"):
         if getattr(args, flag) is not None:
-            raise SystemExit(f"occnet_tpu_torch.tools.train: --"
-                             f"{flag.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP Queue 1 item {item})")
+            raise SystemExit(f"occnet_tpu_torch.tools.train: --{flag} is "
+                             f"not ported yet (ROADMAP Queue 1 item 5)")
+    temporal = args.temporal_queue > 1
+    if temporal and (args.synthetic_data or args.synthetic_geometric):
+        raise SystemExit("occnet_tpu_torch.tools.train: --temporal-queue "
+                         "trains on the scene clips of a data root; "
+                         "--synthetic-data and --synthetic-geometric make "
+                         "single frames with no clips")
     cfg = get_config(args.config)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
@@ -240,6 +259,16 @@ def main(argv: Optional[Sequence[str]] = None):
         from occnet_tpu_torch.data.nuscenes import (NuSceneOccDataset,
                                                     build_train_dataset)
         dataset = build_train_dataset(cfg.data, training=True)
+        if temporal:
+            from occnet_tpu_torch.data import ClipDataset, ConcatOccDataset
+
+            def clips(d):
+                return ClipDataset(d, args.temporal_queue, cfg.model.pc_range,
+                                   (cfg.model.bev_h, cfg.model.bev_w))
+
+            dataset = (ConcatOccDataset([clips(d) for d in dataset.datasets])
+                       if isinstance(dataset, ConcatOccDataset)
+                       else clips(dataset))
         if wants_eval:
             val_dataset = NuSceneOccDataset(
                 cfg.data, os.path.join(cfg.data.data_root, cfg.data.val_ann),
@@ -247,8 +276,9 @@ def main(argv: Optional[Sequence[str]] = None):
         steps_per_epoch = max(len(dataset) // batch_size, 1)
         cfg = apply_overrides(cfg, {"optim.steps_per_epoch":
                                     str(steps_per_epoch)})
-        log.info("dataset: %d frames, %d steps/epoch", len(dataset),
-                 steps_per_epoch)
+        log.info("dataset: %d %s, %d steps/epoch", len(dataset),
+                 f"{args.temporal_queue}-frame clips" if temporal
+                 else "frames", steps_per_epoch)
     else:
         batch = to_device(make_synthetic_batch(
             cfg, batch_size, np.random.RandomState(args.seed)), device)
@@ -273,7 +303,8 @@ def main(argv: Optional[Sequence[str]] = None):
         checkpoint.restore(ckpt_path, state)
         log.info("resumed from step %d", state.step)
 
-    step_fn = make_train_step(cfg, seed=args.seed)
+    step_fn = (make_temporal_train_step if temporal else make_train_step)(
+        cfg, seed=args.seed)
     total_steps = cfg.optim.total_epochs * cfg.optim.steps_per_epoch
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)

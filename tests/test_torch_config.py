@@ -87,13 +87,18 @@ def test_port_modules_import_without_the_jax_package():
         "data.pipeline", "utils", "utils.torch_convert",
         "evaluation.submission", "tools.test", "tools.ray_casting",
         "tools.metric", "tools.train")} <= mods, r.stdout
+    # and the temporal slice's
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "ops.transforms", "training.temporal", "data.clips")} <= mods, \
+        r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
     """With no CUDA device and no --device, the train CLI, the test CLI and
     the ray-casting CLI exit naming `--device cpu` before they write
     anything; with it, the train CLI trains.  The train CLI's flags not
-    ported yet exit naming their ROADMAP item."""
+    ported yet exit naming their ROADMAP item, and --temporal-queue exits
+    on a synthetic source, which has no clips."""
     from occnet_tpu_torch.tools import ray_casting, test, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -104,10 +109,11 @@ def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
             "model.encoder.num_layers=1", "model.encoder.ffn_dim=32"]
     with pytest.raises(SystemExit, match="--device cpu"):
         train.main(argv)
-    for flag, item in (("--temporal-queue=2", 2), ("--distributed", 5),
-                       ("--profile=3", 5)):
-        with pytest.raises(SystemExit, match=f"Queue 1 item {item}"):
+    for flag in ("--distributed", "--profile=3"):
+        with pytest.raises(SystemExit, match="Queue 1 item 5"):
             train.main(argv + [flag, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no clips"):
+        train.main(argv + ["--temporal-queue=2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--device cpu"):
         test.main(["--config", "tiny_occ", "--eval"])
     with pytest.raises(SystemExit, match="--device cpu"):
