@@ -203,6 +203,31 @@ Phases (each raises on failure, so any failure exits nonzero):
               GT vs GT RayIoU 1); the train CLI with --temporal-queue 2 on
               turbo_occ for 2 steps (lift / tap launches for both clip
               frames, the backward's for the last) and one step resumed
+ 32. bench    `python -m occnet_tpu_torch.tools.bench` in its own process:
+              its JSON line (bench.py's keys, the card's name and power
+              limit) and frames/s of the turbo_occ forward
+ 33. data-parallel steps  over torchrun, full width, B = 1 a rank,
+              dropout 0 (grid mask and distortion on): turbo_occ at NCCL
+              world 1 bitwise equal to the in-process step; turbo_occ and
+              base_occ at gloo world 2, both ranks on the one card, the
+              ranks' leaves bitwise equal, turbo_occ against the
+              in-process B = 2 step (loss and BN statistics 1e-3, the
+              gradients within twice what swapping the B = 2 batch's
+              samples moves them); NCCL at world 2 where two cards show;
+              for each rank the timed step's host ms, its CUDA-event split
+              (forward, backward, gradient all-reduce, optimizer), peak
+              memory and hand-kernel launches
+ 34. dist_train  occnet_tpu_torch/tools/dist_train.sh at world 1 (NCCL)
+              on phase 25's data root (a one-frame train split: a
+              checkpoint every step), --profile 2, 4 steps: 3 checkpoints
+              kept with their metadata, metrics.jsonl in the JAX format
+              with its "hbm" event, the trace naming the lift, tap,
+              lift_bwd and tap_bwd kernels; --resume from the step-2
+              checkpoint equal to the uninterrupted run
+ 35. dist_test  occnet_tpu_torch/tools/dist_test.sh at world 2 (gloo, one
+              card) with phase 34's checkpoint, --eval --format-only on the
+              4 val frames: scores and merged submission equal to the
+              single-process test CLI's
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -4106,6 +4131,529 @@ def phase_temporal_data(torch, results, root):
         results["phase_launches"]["31"][k] = v
 
 
+# --- phases 32-35: the runtime (bench entry point, data parallelism over
+# torch.distributed, the distributed CLIs) ---
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+LAUNCH_TIMEOUT_S = 420   # each subprocess and torchrun launch of 32-35
+DIST_STEP_CFGS = {"turbo_occ": ("lift", "tap", "lift_bwd", "tap_bwd"),
+                  "turbo_occ_fp32": ("lift", "tap", "lift_bwd", "tap_bwd"),
+                  "base_occ": ("msda", "msda_bwd")}
+
+
+def run_cmd(cmd, label, env=None):
+    """Run ``cmd`` from the repo root with the repo on PYTHONPATH; raises on
+    a nonzero exit (a failed rank fails its launcher) or past
+    LAUNCH_TIMEOUT_S.  Returns (stdout, seconds)."""
+    full = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), OCCNET_DIST_TIMEOUT_S="300",
+        OMP_NUM_THREADS="4", **(env or {}))
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=full, capture_output=True,
+                       text=True, timeout=LAUNCH_TIMEOUT_S)
+    dt = time.perf_counter() - t
+    if r.returncode != 0:
+        raise RuntimeError(f"{label} failed (rc {r.returncode}):\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, dt
+
+
+def torchrun(n, *args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(n), *args]
+
+
+def phase_bench(torch, results):
+    """Phase 32: the speed entry point in its own process."""
+    out, dt = run_cmd([sys.executable, "-m", "occnet_tpu_torch.tools.bench"],
+                      "tools/bench.py", {"BENCH_ITERS": "20"})
+    line = json.loads(out.strip().splitlines()[-1])
+    log(f"  tools/bench.py in {dt:.1f} s: {json.dumps(line)}")
+    keys = {"metric", "value", "unit", "vs_baseline", "device",
+            "power_limit"}
+    if not keys <= line.keys() or not line["value"] > 0 \
+            or line["out_shape"] != [1, 200, 200, 16, 17]:
+        raise RuntimeError(f"tools/bench.py printed {line}")
+    results["runtime"]["bench"] = line
+
+
+def dist_step_cfg(name):
+    """``name`` with dropout 0 (a rank's dropout masks follow (seed, step,
+    rank), so only a step without dropout is the B = N step); grid mask
+    and photometric distortion stay on.  A ``_fp32`` suffix computes in
+    float32."""
+    from occnet_tpu_torch.config import apply_overrides, get_config
+    fp32 = name.endswith("_fp32")
+    return apply_overrides(get_config(name[:-5] if fp32 else name), {
+        "model.encoder.ffn_dropout": "0", "model.encoder.tsa.dropout": "0",
+        "model.encoder.sca.dropout": "0",
+        **({"model.compute_dtype": "float32"} if fp32 else {})})
+
+
+def dist_step_batch(cfg, batch_size):
+    from occnet_tpu_torch.tools.train import make_synthetic_batch
+    return make_synthetic_batch(cfg, batch_size, np.random.RandomState(0))
+
+
+def kernel_counters(names):
+    from occnet_tpu_torch.ops.lift_cuda import LIFT, LIFT_BWD
+    from occnet_tpu_torch.ops.msda import MSDA, MSDA_BWD
+    from occnet_tpu_torch.ops.tsa import TAP, TAP_BWD
+    k = {"lift": LIFT, "tap": TAP, "lift_bwd": LIFT_BWD, "tap_bwd": TAP_BWD,
+         "msda": MSDA, "msda_bwd": MSDA_BWD}
+    return {n: k[n] for n in names}
+
+
+def dist_step_rank(argv):
+    """One rank of phase 33 (``chip_smoke.py dist-step OUT BACKEND
+    CONFIGS``, under torchrun): for each config one step at B = 1 on this
+    rank's part of the global batch (saved for the comparison: rank 0's
+    parameters and gradients, every rank's metrics), then one more step
+    timed (host ms, CUDA-event split with the gradient all-reduce, peak
+    memory, hand-kernel launches), and how many leaves differ between the
+    ranks."""
+    import torch
+    import torch.distributed as dist
+    from occnet_tpu_torch import parallel
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.parallel.multihost import local_device, shutdown
+    from occnet_tpu_torch.training.train import (create_train_state,
+                                                 make_train_step)
+    out_dir, backend, names = argv[0], argv[1], argv[2].split(",")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.initialize(backend)
+    rank, world = parallel.process_shard()
+    dev = local_device("cuda")
+    res = {"world": world, "backend": backend, "device": str(dev)}
+    try:
+        for name in names:
+            cfg = dist_step_cfg(name)
+            state = create_train_state(cfg, from_jax_variables(
+                init_jax_style_variables(cfg, seed=0)), dev)
+            batch = parallel.global_batch(parallel.shard_batch(
+                dist_step_batch(cfg, world), parallel.make_mesh()), dev)
+            step = make_train_step(cfg, seed=0)
+            met = {k: float(v) for k, v in step(state, batch).items()}
+            r = {"metrics": met}
+            if rank == 0:
+                r["params"] = {n: p.detach().cpu() for n, p in
+                               state.model.named_parameters()}
+                r["grads"] = {n: p.grad.detach().float().cpu() for n, p in
+                              state.model.named_parameters()
+                              if p.grad is not None}
+                r["buffers"] = {n: b.detach().cpu() for n, b in
+                                state.model.named_buffers()}
+            differ = 0
+            for t in list(state.model.parameters()) + list(
+                    state.model.buffers()):
+                ref = t.detach().clone()
+                if world > 1:
+                    dist.broadcast(ref, 0)
+                differ += int(not torch.equal(ref, t.detach()))
+            r["differ"] = differ
+            counters = kernel_counters(DIST_STEP_CFGS[name])
+            for k in counters.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = {"start": torch.cuda.Event(enable_timing=True)}
+
+            def mark(label):
+                ev[label] = torch.cuda.Event(enable_timing=True)
+                ev[label].record()
+
+            t = time.perf_counter()
+            ev["start"].record()
+            met2 = step(state, batch, mark)
+            torch.cuda.synchronize()
+            r["step_ms"] = (time.perf_counter() - t) * 1e3
+            r["loss2"] = float(met2["loss"])
+            order = ["start", "forward", "backward"] + (
+                ["allreduce"] if world > 1 else []) + ["optimizer"]
+            r["split_ms"] = {b: ev[a].elapsed_time(ev[b])
+                             for a, b in zip(order, order[1:])}
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["launches"] = {k: v.launches for k, v in counters.items()}
+            res[name] = r
+            del state, batch
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        parallel.barrier()
+    finally:
+        shutdown()
+
+
+def single_step(torch, name, batch_size):
+    """The in-process step of `dist_step_rank` at B = ``batch_size``: (state
+    after it, metrics, the initial state_dict on the host)."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.tools.train import to_device
+    from occnet_tpu_torch.training.train import (create_train_state,
+                                                 make_train_step)
+    cfg = dist_step_cfg(name)
+    sd = from_jax_variables(init_jax_style_variables(cfg, seed=0))
+    state = create_train_state(cfg, sd, "cuda")
+    batch = dist_step_batch(cfg, batch_size)
+    met = make_train_step(cfg, seed=0)(state, to_device(batch, "cuda"))
+    return state, {k: float(v) for k, v in met.items()}, sd
+
+
+def b2_reference(torch, name):
+    """The in-process B = 2 step of ``name`` on the host: its metrics,
+    gradients, first update (parameters after - before) and buffers."""
+    state, met, sd = single_step(torch, name, 2)
+    ref = {"metrics": met,
+           "grads": {n: p.grad.detach().float().cpu() for n, p in
+                     state.model.named_parameters() if p.grad is not None},
+           "update": {n: p.detach().cpu() - sd[n] for n, p in
+                      state.model.named_parameters()},
+           "buffers": {n: b.detach().cpu() for n, b in
+                       state.model.named_buffers()}, "sd": sd}
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def step_distance(got, ref):
+    """How far the world-2 step ``got`` (rank 0's record) lies from the
+    B = 2 step ``ref``: per leaf |g - g_ref|max / |g_ref|max and the L2
+    ratio, the whole gradient and the whole first update in relative L2,
+    the grad norm and loss relative, the BN statistics' largest
+    difference."""
+    def l2(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    if got["grads"].keys() != ref["grads"].keys():
+        raise RuntimeError("the world-2 and B = 2 steps give gradients to "
+                           "different leaves")
+    names = sorted(ref["grads"])
+    leaf = {n: ((got["grads"][n] - ref["grads"][n]).abs().max().item()
+                / max(ref["grads"][n].abs().max().item(), 1e-30),
+                l2(got["grads"][n], ref["grads"][n])) for n in names}
+    whole = torch_cat([got["grads"][n] for n in names])
+    whole_ref = torch_cat([ref["grads"][n] for n in names])
+    upd = torch_cat([got["params"][n] - ref["sd"][n] for n in names])
+    upd_ref = torch_cat([ref["update"][n] for n in names])
+    gm, rm = got["metrics"], ref["metrics"]
+    return {"leaf": leaf, "grad_l2": l2(whole, whole_ref),
+            "update_l2": l2(upd, upd_ref),
+            "grad_norm": abs(gm["grad_norm"] - rm["grad_norm"])
+            / rm["grad_norm"],
+            "loss": abs(gm["loss"] - rm["loss"]) / abs(rm["loss"]),
+            "stats": max((b - got["buffers"][n]).float().abs().max().item()
+                         for n, b in ref["buffers"].items())}
+
+
+def torch_cat(tensors):
+    import torch
+    return torch.cat([t.reshape(-1).float() for t in tensors])
+
+
+def log_ranks(label, ranks, name):
+    for i, r in enumerate(ranks):
+        x = r[name]
+        log(f"    {label} rank {i} ({r['backend']}, {r['device']}) {name}: "
+            f"loss {x['metrics']['loss']:.6f} then {x['loss2']:.6f}; "
+            f"timed step {x['step_ms']:.3f} ms host, device split "
+            + ", ".join(f"{k} {v:.3f}" for k, v in x["split_ms"].items())
+            + f" ms; peak {x['peak_gib']:.3f} GiB; launches "
+            f"{x['launches']}; leaves differing from rank 0: "
+            f"{x['differ']}")
+
+
+def phase_dist_step(torch, results, tmp):
+    """Phase 33: full-width steps at B = 1 a rank over torchrun: NCCL at
+    world 1 against the in-process step (bitwise), gloo at world 2 with
+    both ranks on the one card against the in-process B = 2 step, in fp32
+    and in bf16, base_occ at world 2 over gloo (MSDA and its backward under
+    the group); NCCL at world 2 where two cards show; and the entry
+    point's dry run (`python -m occnet_tpu_torch.entry dryrun 2`) on the
+    card.
+
+    On the card a step is deterministic (the same B = 2 step twice is
+    bitwise equal), so the world-2 step differs from the B = 2 step only
+    by the order of its sums (B = 1 shapes, the statistics' and the
+    gradients' all-reduces).  In fp32 that moves no leaf by more than
+    1e-4 of its max (the B = 2 step with its samples swapped, augmentation
+    off: 4.4e-5), and the fp32 world-2 step is held to phase 7's bounds:
+    loss and BN statistics 1e-3, every leaf within GRAD_RTOL of its max;
+    with the whole gradient within 1e-4 in L2 and the first update within
+    1e-3 in L2 (tests/test_torch_parallel.py's bound), grad norm 1e-4.
+    In bf16 the same reorderings flip bf16 roundings, and on leaves whose
+    gradient is a sum that nearly cancels (|g|max ~ 1e-6 on some encoder
+    leaves) that moves the gradient far beyond GRAD_RTOL.  So each bf16
+    leaf's reach is measured: how far the bf16 B = 2 gradient lies from
+    the fp32 one.  A leaf within GRAD_RTOL / 2 (the rounding does not
+    reach it) is held to GRAD_RTOL; a leaf the rounding reaches is held to
+    twice its reach (both bf16 steps approximate the same fp32 step), and
+    so are the whole gradient, the first update and the grad norm; loss
+    and statistics to 1e-3."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _dist_step_checks(torch, results, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _dist_step_checks(torch, results, tmp):
+    runs = {}
+    plan = [("nccl1", 1, "nccl", "turbo_occ"),
+            ("gloo2", 2, "gloo", "turbo_occ,turbo_occ_fp32,base_occ")]
+    if torch.cuda.device_count() >= 2:
+        plan.append(("nccl2", 2, "nccl", "turbo_occ"))
+    for label, n, backend, names in plan:
+        out = os.path.join(tmp, label)
+        os.makedirs(out)
+        _, dt = run_cmd(torchrun(n, os.path.join(REPO, "chip_smoke.py"),
+                                 "dist-step", out, backend, names),
+                        f"the {label} launch")
+        runs[label] = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                                  weights_only=False) for r in range(n)]
+        log(f"  {label}: world {n}, {backend}, {names} in {dt:.1f} s")
+        for name in names.split(","):
+            log_ranks(label, runs[label], name)
+    if torch.cuda.device_count() < 2:
+        log("  NCCL at world 2 not run: the machine shows one card (NCCL "
+            "takes one card a rank)")
+    # NCCL world 1 against the in-process step: bitwise expected
+    state, met, _ = single_step(torch, "turbo_occ", 1)
+    got = runs["nccl1"][0]["turbo_occ"]
+    same_p = sum(torch.equal(p.detach().cpu(), got["params"][n])
+                 for n, p in state.model.named_parameters())
+    same_b = sum(torch.equal(b.detach().cpu(), got["buffers"][n])
+                 for n, b in state.model.named_buffers())
+    n_p = len(got["params"])
+    worst = max((p.detach().cpu() - got["params"][n]).abs().max().item()
+                for n, p in state.model.named_parameters())
+    log(f"  nccl1 vs in-process B = 1: loss {got['metrics']['loss']!r} vs "
+        f"{met['loss']!r}, grad norm {got['metrics']['grad_norm']!r} vs "
+        f"{met['grad_norm']!r}; {same_p}/{n_p} parameters and "
+        f"{same_b}/{len(got['buffers'])} buffers bitwise equal (worst "
+        f"|diff| {worst:.3e})")
+    if got["metrics"] != met or same_p != n_p \
+            or same_b != len(got["buffers"]):
+        raise RuntimeError("the NCCL world-1 step is not the in-process step")
+    del state
+    torch.cuda.empty_cache()
+    # gloo world 2 against the in-process B = 2 step, fp32 then bf16
+    ranks = runs["gloo2"]
+    ref32 = b2_reference(torch, "turbo_occ_fp32")
+    d32 = step_distance(ranks[0]["turbo_occ_fp32"], ref32)
+    ref16 = b2_reference(torch, "turbo_occ")
+    d16 = step_distance(ranks[0]["turbo_occ"], ref16)
+    # each bf16 leaf's reach: the bf16 B = 2 gradient against the fp32 one
+    reach = step_distance({"grads": ref16["grads"], "metrics":
+                           ref16["metrics"], "buffers": ref16["buffers"],
+                           "params": {n: ref16["sd"][n] + u for n, u in
+                                      ref16["update"].items()}}, ref32)
+    held = {n: GRAD_RTOL if r[0] <= GRAD_RTOL / 2 else 2 * r[0]
+            for n, r in reach["leaf"].items()}
+    bad16 = [n for n, (e, _) in d16["leaf"].items() if e > held[n]]
+    bad32 = [n for n, (e, _) in d32["leaf"].items() if e > GRAD_RTOL]
+
+    def worst(d, k):
+        n = max(d["leaf"], key=lambda n: d["leaf"][n][k])
+        return f"{d['leaf'][n][k]:.3e} ({n})"
+
+    for label, d in (("fp32", d32), ("bf16", d16), ("bf16 vs fp32 B = 2",
+                                                    reach)):
+        log(f"  gloo2 {label}: loss {d['loss']:.2e}, grad norm "
+            f"{d['grad_norm']:.2e}, whole gradient L2 {d['grad_l2']:.3e}, "
+            f"first update L2 {d['update_l2']:.3e}, BN statistics "
+            f"{d['stats']:.3e}; worst leaf max {worst(d, 0)}, L2 "
+            f"{worst(d, 1)}")
+    n_reached = sum(h > GRAD_RTOL for h in held.values())
+    log(f"  bf16 leaves the rounding reaches (bf16 B = 2 over GRAD_RTOL / 2 "
+        f"from fp32): {n_reached}/{len(held)}, held to twice their reach; "
+        f"the other {len(held) - n_reached} to GRAD_RTOL; over: {bad16}; "
+        f"fp32 leaves over GRAD_RTOL: {bad32}")
+    same_metrics = all(ranks[0][k]["metrics"] == ranks[1][k]["metrics"]
+                       for k in ("turbo_occ", "turbo_occ_fp32", "base_occ"))
+    ok32 = (d32["loss"] <= 1e-3 and d32["stats"] <= 1e-3 and not bad32
+            and d32["grad_l2"] <= 1e-4 and d32["update_l2"] <= 1e-3
+            and d32["grad_norm"] <= 1e-4)
+    ok16 = (d16["loss"] <= 1e-3 and d16["stats"] <= 1e-3 and not bad16
+            and d16["grad_l2"] <= 2 * reach["grad_l2"]
+            and d16["update_l2"] <= 2 * reach["update_l2"]
+            and d16["grad_norm"] <= 2 * reach["grad_norm"] + 1e-6)
+    if not (ok32 and ok16 and same_metrics and all(
+            r[k]["differ"] == 0 and r[k]["metrics"]["cert_overflow"] == 0
+            for r in ranks for k in DIST_STEP_CFGS)):
+        raise RuntimeError(f"the gloo world-2 step is not the B = 2 step "
+                           f"(fp32 ok {ok32}, bf16 ok {ok16}, ranks' metrics "
+                           f"equal {same_metrics})")
+    results["runtime"]["dist_step_check"] = {
+        k: {m: d[m] for m in ("loss", "grad_norm", "grad_l2", "update_l2",
+                              "stats")} | {
+            "worst_leaf_max": max(e for e, _ in d["leaf"].values()),
+            "worst_leaf_l2": max(e for _, e in d["leaf"].values())}
+        for k, d in (("fp32", d32), ("bf16", d16), ("bf16_vs_fp32", reach))}
+    results["runtime"]["dist_step_check"]["bf16_leaves_reached"] = [
+        n_reached, len(held)]
+    del ref16, ref32
+    # the dry run of the entry point, on the card (two ranks share it over
+    # gloo where one card shows)
+    out, dt = run_cmd([sys.executable, "-m", "occnet_tpu_torch.entry",
+                       "dryrun", "2"], "the entry point's dry run")
+    log(f"  entry dryrun 2 in {dt:.1f} s: " + "; ".join(
+        out.strip().splitlines()))
+    if out.count("on cuda:") != 2 or "OK" not in out:
+        raise RuntimeError(f"the dry run did not run on the card:\n{out}")
+    from occnet_tpu_torch.config import get_config
+    m = get_config("turbo_occ").model
+    n_exact = get_config("base_occ").model.encoder.num_layers
+    want = {"turbo_occ": {"lift": m.num_feature_levels,
+                          "tap": m.encoder.num_layers,
+                          "lift_bwd": m.num_feature_levels,
+                          "tap_bwd": m.encoder.num_layers},
+            "base_occ": {"msda": 2 * n_exact, "msda_bwd": 2 * n_exact}}
+    want["turbo_occ_fp32"] = want["turbo_occ"]
+    for label, rs in runs.items():
+        for name in want:
+            for r in rs:
+                if name in r and (r[name]["launches"] != want[name]
+                                  or not np.isfinite(r[name]["loss2"])
+                                  or r[name]["metrics"]["cert_overflow"]):
+                    raise RuntimeError(
+                        f"{label} {name}: launches {r[name]['launches']} "
+                        f"!= {want[name]} or a non-finite loss / nonzero "
+                        f"certificate")
+    results["runtime"]["dist_step"] = {
+        label: [{name: {k: r[name][k] for k in ("step_ms", "split_ms",
+                                                 "peak_gib", "launches")}
+                 for name in DIST_STEP_CFGS if name in r} for r in rs]
+        for label, rs in runs.items()}
+
+
+def read_events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_dist_train(torch, results, root, tmp):
+    """Phase 34: dist_train.sh at world 1 (NCCL) on the data root, a
+    one-frame train split (an epoch a step, so every step checkpoints),
+    --distributed --profile 2, 4 steps: three checkpoints kept, the
+    manager's metadata, metrics.jsonl in the JAX package's format with its
+    "hbm" event, the trace naming the four hand kernels of the step; then
+    --resume from the step-2 checkpoint in a fresh work dir equal to the
+    uninterrupted run."""
+    import pickle
+    import shutil
+    with open(os.path.join(root, "infos_train.pkl"), "rb") as f:
+        infos = pickle.load(f)
+    infos["infos"] = infos["infos"][:1]
+    with open(os.path.join(root, "infos_train1.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    script = os.path.join(REPO, "occnet_tpu_torch", "tools", "dist_train.sh")
+    sets = ["--set", f"data.data_root={root}",
+            "data.train_ann=infos_train1.pkl"]
+    work = os.path.join(tmp, "dist_train")
+    _, dt = run_cmd(["bash", script, "turbo_occ", "1", "--work-dir", work,
+                     "--profile", "2", "--max-steps", "4", *sets],
+                    "dist_train.sh")
+    files = sorted(os.listdir(work))
+    ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
+    ev = read_events(os.path.join(work, "metrics.jsonl"))
+    traces = os.listdir(os.path.join(work, "trace"))
+    with open(os.path.join(work, "trace", traces[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kern = {k: sum(s in n for n in names) for k, s in (
+        ("lift", "lift_level_kernel"), ("tap", "tap_kernel<"),
+        ("lift_bwd", "lift_bwd_kernel"), ("tap_bwd", "tap_bwd_kernel"))}
+    hbm = [e for e in ev if e["tag"] == "hbm"]
+    train = [e for e in ev if e["tag"] == "train"]
+    log(f"  dist_train.sh (world 1, nccl, 4 steps, --profile 2) in "
+        f"{dt:.1f} s: work dir {files}; ckpt.pt -> "
+        f"{os.readlink(os.path.join(work, 'ckpt.pt'))} (step {ck['step']}, "
+        f"env {ck['env']}); losses {[round(e['loss'], 4) for e in train]}; "
+        f"hbm {hbm}; trace {traces[0]}: kernel names {kern}")
+    steps = sorted(int(f[5:-3]) for f in files
+                   if f.startswith("ckpt_") and f.endswith(".pt"))
+    if steps != [2, 3, 4] or ck["step"] != 4 \
+            or ck["env"]["world_size"] != 1 or "config" not in ck \
+            or [e["step"] for e in train] != [0, 1, 2, 3] \
+            or not all({"ts", "step", "tag", "loss", "grad_norm",
+                        "s_per_it"} <= e.keys() for e in train) \
+            or len(hbm) != 1 or not hbm[0]["peak_bytes_in_use"] > 0 \
+            or len(traces) != 1 or not all(kern.values()):
+        raise RuntimeError("dist_train.sh's run is not what it should be")
+    resumed = os.path.join(tmp, "dist_train_resumed")
+    os.makedirs(resumed)
+    shutil.copy(os.path.join(work, "ckpt_2.pt"), resumed)
+    _, dt = run_cmd(["bash", script, "turbo_occ", "1", "--work-dir", resumed,
+                     "--resume", "--max-steps", "4", *sets],
+                    "dist_train.sh --resume")
+    ck2 = torch.load(os.path.join(resumed, "ckpt.pt"), weights_only=True)
+    ev2 = read_events(os.path.join(resumed, "metrics.jsonl"))
+    diff = max((a.float() - ck2["model"][n].float()).abs().max().item()
+               for n, a in ck["model"].items())
+    same = sum(torch.equal(a, ck2["model"][n]) for n, a in
+               ck["model"].items())
+    log(f"  --resume from ckpt_2.pt in {dt:.1f} s: steps "
+        f"{[e['step'] for e in ev2 if e['tag'] == 'train']}, checkpoint "
+        f"step {ck2['step']}; {same}/{len(ck['model'])} tensors bitwise "
+        f"equal to the uninterrupted run's, worst |diff| {diff:.3e}")
+    if ck2["step"] != 4 or [e["step"] for e in ev2 if e["tag"] == "train"] \
+            != [2, 3] or diff > 1e-6:
+        raise RuntimeError("--resume did not continue the run")
+    results["runtime"]["dist_train"] = {"s_per_it": train[-1]["s_per_it"],
+                                        "peak_bytes": hbm[0][
+                                            "peak_bytes_in_use"]}
+    return os.path.join(work, "ckpt.pt")
+
+
+def phase_dist_test(torch, results, root, tmp, ckpt):
+    """Phase 35: dist_test.sh at world 2 (gloo, both ranks on the one card)
+    on the data root's 4 val frames with phase 34's checkpoint, --eval
+    --format-only, against the single-process test CLI in its own process
+    (the same torch defaults): the scores equal and the merged submission
+    equal, token for token."""
+    import gzip
+    import pickle
+    args = ["--eval", "--format-only", "--set", f"data.data_root={root}",
+            "data.val_ann=infos_val.pkl"]
+    dist_dir = os.path.join(tmp, "dist_test")
+    script = os.path.join(REPO, "occnet_tpu_torch", "tools", "dist_test.sh")
+    out, dt = run_cmd(["bash", script, "turbo_occ", ckpt, "2",
+                       "--dist-backend", "gloo", "--work-dir", dist_dir,
+                       "--out", os.path.join(dist_dir, "sub.gz"), *args],
+                      "dist_test.sh")
+    one_dir = os.path.join(tmp, "single_test")
+    _, dt1 = run_cmd([sys.executable, "-m", "occnet_tpu_torch.tools.test",
+                      "--config", "turbo_occ", "--checkpoint", ckpt,
+                      "--work-dir", one_dir, "--out",
+                      os.path.join(one_dir, "sub.gz"), *args],
+                     "the single-process test CLI")
+    scores, single = ({}, {})
+    for d, into in ((dist_dir, scores), (one_dir, single)):
+        with open(os.path.join(d, "eval_results.json")) as f:
+            into.update(json.load(f))
+    subs = []
+    for d in (dist_dir, one_dir):
+        with gzip.open(os.path.join(d, "sub.gz"), "rb") as f:
+            subs.append(pickle.load(f))
+    same = subs[0]["results"].keys() == subs[1]["results"].keys() and all(
+        np.array_equal(subs[0]["results"][t][k], a)
+        for t, e in subs[1]["results"].items() for k, a in e.items())
+    eq = scores.keys() == single.keys() and all(
+        (np.isnan(v) and np.isnan(scores[k])) or v == scores[k]
+        for k, v in single.items())
+    log(f"  dist_test.sh (world 2, gloo, one card) in {dt:.1f} s: "
+        f"{scores}; the single-process CLI in {dt1:.1f} s: {single}; "
+        f"scores equal {eq}; submissions "
+        f"({len(subs[0]['results'])} tokens) equal {same}")
+    if not (eq and same and len(subs[0]["results"]) == MINISET_FRAMES):
+        raise RuntimeError("dist_test.sh differs from the single-process CLI")
+    results["runtime"]["dist_test_s"] = dt
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4242,6 +4790,27 @@ def main():
             run()
             torch.cuda.empty_cache()
             log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
+        results["runtime"] = {}
+        ckpt = {}
+        for n, label, run in (
+                (32, "bench: tools/bench.py, the turbo_occ forward",
+                 lambda: phase_bench(torch, results)),
+                (33, "data-parallel steps over torchrun: turbo_occ at NCCL "
+                     "world 1 and at gloo world 2 in bf16 and fp32, base_occ "
+                     "at gloo world 2, the entry point's dry run",
+                 lambda: phase_dist_step(torch, results, root)),
+                (34, "dist_train.sh at world 1: 4 steps, --profile 2, the "
+                     "checkpoint manager, --resume",
+                 lambda: ckpt.update(path=phase_dist_train(torch, results,
+                                                           root, root))),
+                (35, "dist_test.sh at world 2 against the single-process "
+                     "test CLI", lambda: phase_dist_test(
+                         torch, results, root, root, ckpt["path"]))):
+            log(f"[{n} {label}]")
+            t = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4343,4 +4912,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["dist-step"]:
+        dist_step_rank(sys.argv[2:])
+    else:
+        main()

@@ -204,19 +204,29 @@ def make_device_train_augmenter(cfg: DataConfig, size_divisor: int = 32,
                                 distort: bool = True):
     """On-device train-time processing of uint8 uploads: photometric
     distortion -> normalise -> bottom/right zero-pad, the host path's order.
-    Returns ``augment(generator, imgs)``; float inputs pass through unchanged
-    (already processed), as in the JAX package."""
+    Returns ``augment(generator, imgs, shard=(0, 1))``; float inputs pass
+    through unchanged (already processed), as in the JAX package.  With
+    ``shard = (rank, world)`` the images are a data-parallel rank's part of
+    a global batch world times as large: the draws are taken for the whole
+    global batch and the rank applies its own slice of them, so the
+    generator's draws, and each image's, are those of one process holding
+    the global batch."""
     mean, std = _mean_std(cfg)
 
-    def augment(generator: Optional[torch.Generator], imgs: torch.Tensor
-                ) -> torch.Tensor:
+    def augment(generator: Optional[torch.Generator], imgs: torch.Tensor,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         if imgs.dtype != torch.uint8:
             return imgs
         out = imgs.to(torch.float32)
         if distort:
             n = int(np.prod(out.shape[:-3]))
-            out = photometric_distortion_device(
-                out, photometric_draws(generator, n, device=out.device))
+            rank, world = shard
+            draws = photometric_draws(generator, n * world,
+                                      device=out.device)
+            if world > 1:
+                draws = {k: v[rank * n:(rank + 1) * n]
+                         for k, v in draws.items()}
+            out = photometric_distortion_device(out, draws)
         return _normalize_pad(out, mean, std, size_divisor)
 
     return augment

@@ -62,7 +62,8 @@ class OccNet(nn.Module):
                 prev_bev: Optional[torch.Tensor] = None,
                 shift_ref_2d: Optional[torch.Tensor] = None,
                 only_bev: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """img (B, cams, H, W, 3) normalised, ego2img (B, cams, 4, 4).
         ``prev_bev`` (B, Q, C) is the history BEV aligned into this frame
@@ -70,10 +71,13 @@ class OccNet(nn.Module):
         slot (`training/temporal.py`).  ``only_bev`` returns the BEV
         ("bev_embed") and the certificates alone.  ``train`` turns on the
         grid mask, dropout and batch statistics, with every random draw
-        taken from ``generator`` (on the model's device)."""
+        taken from ``generator`` (on the model's device), the dropout masks
+        from ``dropout_generator`` when one is given (a data-parallel rank's
+        own, see `training.train.make_train_step`)."""
         feats, overflow = self.extract_img_feat(img, train, generator)
         outs = self.head(feats, ego2img, prev_bev, shift_ref_2d, only_bev,
-                         train, generator)
+                         train, generator if dropout_generator is None
+                         else dropout_generator)
         if overflow is not None:
             outs["dcn_window_overflow"] = overflow
         return outs

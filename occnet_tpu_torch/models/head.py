@@ -13,6 +13,7 @@ import torch.nn as nn
 from occnet_tpu_torch.config import FLOW_CLASS_NAMES, LossConfig, ModelConfig
 from occnet_tpu_torch.models.positional import LearnedPositionalEncoding2D
 from occnet_tpu_torch.models.transformer_occ import TransformerOcc
+from occnet_tpu_torch.parallel.multihost import all_reduce_, world_size
 
 
 class OccHead(nn.Module):
@@ -65,7 +66,23 @@ def occ_flow_loss(occ_logits: torch.Tensor, flow_pred: torch.Tensor,
     JAX package: ``class_weights`` uses the torch `F.cross_entropy`
     reduction sum(w[y] * ce) / sum(w[y]); ``flow_fg_weight`` weights flow-class
     voxels in a weighted flow mean; ``use_mask`` with a camera mask masks
-    both terms.  Returns (loss_occ, loss_flow)."""
+    both terms.  Returns (loss_occ, loss_flow).
+
+    Under a process group of N > 1 ranks each rank holds 1 / N of the global
+    batch, and the JAX step's losses are means over the global batch: the
+    weighted and masked means divide by the all-reduced weight sum, and
+    every term is returned as this rank's share scaled so that the average
+    over ranks (the data-parallel gradient average) is the global mean.
+    The plain means have equal counts on every rank and need no
+    collective.  At world size 1 the arithmetic is unchanged: the
+    all-reduce is the identity, ``num * 1`` is exact and the weight sums
+    carry no gradient."""
+    world = world_size()
+
+    def weighted_mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+        return num * world / all_reduce_(den.detach().clone()).clamp(
+            min=1e-6)
+
     num_classes = occ_logits.shape[-1]
     logits = occ_logits.float().reshape(-1, num_classes)
     labels = voxel_semantics.long().reshape(-1)
@@ -89,15 +106,15 @@ def occ_flow_loss(occ_logits: torch.Tensor, flow_pred: torch.Tensor,
                          torch.ones_like(l1f[:, 0]))
         if extra_mask is not None:
             fw = fw * extra_mask
-        return (l1f * fw[:, None]).sum() / (fw.sum() * 2.0).clamp(min=1e-6)
+        return weighted_mean((l1f * fw[:, None]).sum(), fw.sum() * 2.0)
 
     if loss_cfg.use_mask and mask_camera is not None:
         m = mask_camera.reshape(-1).float()
         wm = m if w is None else w * m
-        loss_occ = (ce * wm).sum() / wm.sum().clamp(min=1e-6)
+        loss_occ = weighted_mean((ce * wm).sum(), wm.sum())
         loss_flow = flow_mean(m)
     elif w is not None:
-        loss_occ = (ce * w).sum() / w.sum().clamp(min=1e-6)
+        loss_occ = weighted_mean((ce * w).sum(), w.sum())
         loss_flow = flow_mean()
     else:
         loss_occ = ce.mean()

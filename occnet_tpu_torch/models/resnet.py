@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from occnet_tpu_torch.models.layers import Conv2d
 from occnet_tpu_torch.ops.deform_conv import ModulatedDeformConv
+from occnet_tpu_torch.parallel.multihost import all_reduce_sum, world_size
 
 STAGE_BLOCKS = {
     50: (3, 4, 6, 3),
@@ -78,7 +79,10 @@ class TrainableBatchNorm(FrozenBatchNorm):
     (two-pass, `jnp.var`) over (N, H, W) and updates the running statistics
     with torch momentum 0.1 from those same biased statistics (this is not
     `F.batch_norm`, whose running variance is unbiased); in eval it uses the
-    running statistics."""
+    running statistics.  Under a process group of more than one rank the
+    statistics are the global batch's (two differentiable all-reduces: the
+    mean first, then the centred sum of squares); at world size 1 the
+    arithmetic is the single-process one, bit for bit."""
 
     momentum = 0.1
 
@@ -86,8 +90,16 @@ class TrainableBatchNorm(FrozenBatchNorm):
         if not train:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        if world_size() > 1:
+            s = all_reduce_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)), xf.new_full((1,), x.numel()
+                                                   // x.shape[1])]))
+            mean = s[:-1] / s[-1]
+            var = all_reduce_sum((xf - mean[:, None, None]).square().sum(
+                dim=(0, 2, 3))) / s[-1]
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)

@@ -18,6 +18,7 @@ from occnet_tpu_torch.config import ModelConfig
 from occnet_tpu_torch.models.encoder import BEVFormerEncoder
 from occnet_tpu_torch.models.layers import Conv3d, Linear
 from occnet_tpu_torch.ops.planar_lift import lift_and_average
+from occnet_tpu_torch.parallel.multihost import all_reduce_sum, world_size
 
 
 class BatchNorm3d(nn.Module):
@@ -25,7 +26,12 @@ class BatchNorm3d(nn.Module):
     (momentum 0.9): ((x - mean) * (rsqrt(var + eps) * scale)) + bias, with
     the running statistics in eval and, in training, the batch mean and the
     biased variance E[x^2] - E[x]^2 (flax's fast variance, clipped at 0),
-    the running statistics becoming 0.9 * running + 0.1 * batch."""
+    the running statistics becoming 0.9 * running + 0.1 * batch.
+
+    Under a process group of more than one rank the batch is the global
+    one, as under the JAX package's jit over the data axis: one
+    differentiable all-reduce of [sum x, sum x^2, count] per call.  At
+    world size 1 the arithmetic is the single-process one, bit for bit."""
 
     momentum = 0.9
 
@@ -42,8 +48,17 @@ class BatchNorm3d(nn.Module):
         xf = x.float()
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            if world_size() > 1:
+                count = xf.new_full((1, x.shape[1]), x.numel() // x.shape[1])
+                s = all_reduce_sum(torch.cat([
+                    xf.sum(dim=dims)[None], (xf * xf).sum(dim=dims)[None],
+                    count]))
+                mean = s[0] / s[2]
+                var = (s[1] / s[2] - mean * mean).clamp(min=0.0)
+            else:
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(
+                    min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -9,8 +9,9 @@
         --eval --checkpoint work_dirs/torch_turbo_occ/ckpt.pt --set ...
 
 Loads weights (a reference BEVFormerOcc ``.pth`` with ``--torch-checkpoint``,
-else the port's ``ckpt.pt`` from ``--checkpoint`` or ``<work-dir>/ckpt.pt``,
-else random weights with a warning), runs inference over the val split of
+else the port's checkpoint: the file ``--checkpoint`` or the newest of the
+directory ``--checkpoint``, by default ``<work-dir>/ckpt.pt``, else random
+weights with a warning), runs inference over the val split of
 ``data.data_root`` in order (`data.sampler.contiguous_shard_indices`), and
 with ``--eval`` scores RayIoU / mAVE / OccScore (written to
 ``<work-dir>/eval_results.json``) and with ``--format-only`` writes a
@@ -43,9 +44,26 @@ every frame are summed as on the single-frame path.
 
 Metric counts stay on the device and are fetched every 32 frames; a
 submission's frames are rendered on the inference device as they come.
-``--distributed`` and the JAX CLI's choice of implementation
-(``--msda-impl``, host or device normalisation) are not carried: the port
-has one route a device and always uploads uint8.
+
+``--distributed`` evaluates over the ranks of a launcher (`torchrun`,
+`tools/dist_test.sh`), as the reference's 8-GPU dist_test.sh and the JAX
+CLI do: each rank takes a contiguous shard of the val split
+(`data.sampler.contiguous_shard_indices`; the wrap-around padding that
+makes the JAX CLI's shards equal is not run, so the last shard may be
+shorter and no frame is predicted twice), every rank calibrates
+on the split's first frame, the ego origins still come from the full info
+list, each frame's metric counts are all-gathered and summed in the
+split's order (so the float64 flow-error sums are bitwise the
+single-process ones), the certificates are summed over the ranks, and
+each rank writes ``<out>.part<rank>``, which rank 0 merges after a barrier
+(`evaluation.submission.merge_submissions`).  Rank 0 prints and writes the
+scores.  With ``--video`` each rank streams its own shard: a scene cut at a
+shard boundary starts a fresh history on the later rank, like the
+reference's per-GPU streaming state.
+
+The JAX CLI's choice of implementation (``--msda-impl``, host or device
+normalisation) is not carried: the port has one route a device and always
+uploads uint8.
 """
 
 from __future__ import annotations
@@ -61,6 +79,7 @@ import numpy as np
 import torch
 
 FLUSH = 32          # frames whose metric counts are fetched at once
+COUNT_KEYS = ("gt_cnt", "pred_cnt", "tp_cnt", "ave_sum", "ave_cnt")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -71,8 +90,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="reference BEVFormerOcc .pth to convert and "
                         "evaluate")
     p.add_argument("--checkpoint", default=None,
-                   help="the port's checkpoint (defaults to "
-                        "<work-dir>/ckpt.pt)")
+                   help="the port's checkpoint file, or a directory of "
+                        "them (its newest; defaults to <work-dir>/ckpt.pt)")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--format-only", action="store_true")
     p.add_argument("--video", action="store_true",
@@ -97,6 +116,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; the CPU only with "
                         "--device cpu)")
+    p.add_argument("--distributed", action="store_true",
+                   help="evaluate a contiguous shard of the val split on "
+                        "each rank of torchrun's environment; counts "
+                        "all-gathered, rank 0 reports and merges")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl with a card, "
+                        "gloo without)")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VAL")
     return p.parse_args(argv)
 
@@ -142,12 +168,33 @@ def probe_dcn_radii(predictor, sample) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None,
          mark: Optional[Callable[[str], None]] = None) -> dict:
-    """Runs the CLI; returns {"scores" (with --eval), "tokens", "overflow",
-    "per_cam_topk", "dcn_radii", "load_ms"} (the host ms of loading each
-    frame).  ``mark(name)``, when given, is called before each frame
-    ("frame") and after its "forward", "render" and "counts" stages (and,
-    with --video, after a streamed frame's "align")."""
+    """Runs the CLI; returns {"scores" and "counts" (the metric's summed
+    counts) with --eval, "tokens" (this rank's), "overflow" (summed over
+    the ranks), "per_cam_topk", "dcn_radii", "load_ms"} (the host ms of
+    loading each frame).  ``mark(name)``, when
+    given, is called before each frame ("frame") and after its "forward",
+    "render" and "counts" stages (and, with --video, after a streamed
+    frame's "align")."""
     args = parse_args(argv)
+    from occnet_tpu_torch import parallel
+    from occnet_tpu_torch.parallel import multihost
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("occnet_tpu_torch.tools.test: no CUDA device is "
+                         "available; pass --device cpu to run on the CPU")
+    joined = (args.distributed and not multihost.is_initialized()
+              and parallel.initialize(args.dist_backend))
+    try:
+        if args.distributed:
+            device = multihost.local_device(device)
+        return _run(args, device, mark)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _run(args, device: torch.device,
+         mark: Optional[Callable[[str], None]]) -> dict:
     from occnet_tpu_torch.config import apply_overrides, get_config
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
@@ -158,21 +205,27 @@ def main(argv: Optional[Sequence[str]] = None,
     from occnet_tpu_torch.evaluation.ray_metrics import (
         RayMetricAccumulator, format_metrics_table, generate_lidar_rays,
         occ_score_from_metrics, render_pred_gt)
-    from occnet_tpu_torch.evaluation.submission import (save_submission,
+    from occnet_tpu_torch.evaluation.submission import (merge_submissions,
+                                                        save_submission,
                                                         submission_entry)
     from occnet_tpu_torch.geometry import calibration_topk
     from occnet_tpu_torch.models.head import get_occ
+    from occnet_tpu_torch.parallel import (allgather_host, barrier,
+                                           process_shard)
     from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.training.checkpoint import CheckpointManager
     from occnet_tpu_torch.training.temporal import StreamingInferenceState
+
+    rank, world = process_shard()
+
+    def print0(*a):
+        if rank == 0:
+            print(*a)
 
     cfg = get_config(args.config)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("occnet_tpu_torch.tools.test: no CUDA device is "
-                         "available; pass --device cpu to run on the CPU")
     work_dir = args.work_dir or os.path.join("work_dirs",
                                              "torch_" + args.config)
     os.makedirs(work_dir, exist_ok=True)
@@ -182,9 +235,16 @@ def main(argv: Optional[Sequence[str]] = None,
         training=False)
     n = len(dataset) if args.max_samples is None else min(
         len(dataset), args.max_samples)
-    order = contiguous_shard_indices(n, 1, 0)
-    print(f"val set: {n} frames")
-    first = dataset.get_sample(int(order[0]))
+    # this rank's contiguous shard without the wrap-around padding of
+    # equal shards: a padded frame would be predicted twice, and under
+    # --video after the wrong history
+    order = contiguous_shard_indices(n, world, rank)
+    shard_len = len(order)
+    order = order[:max(0, min(shard_len, n - rank * shard_len))]
+    if rank == 0:
+        print(f"val set: {n} frames" + (
+            f" ({world} ranks x <= {shard_len})" if world > 1 else ""))
+    first = dataset.get_sample(0)
 
     m = cfg.model
     per_cam_topk = None
@@ -197,11 +257,16 @@ def main(argv: Optional[Sequence[str]] = None,
                                         per_camera=True)
         cfg = apply_overrides(cfg, {"model.encoder.sca.per_cam_topk":
                                     per_cam_topk})
-        print(f"auto top-K: per_cam_topk={per_cam_topk} (uniform was "
+        print0(f"auto top-K: per_cam_topk={per_cam_topk} (uniform was "
               f"{m.encoder.sca.max_queries_per_cam}; --no-auto-topk pins the "
               f"configured value)")
 
     ckpt = args.checkpoint or os.path.join(work_dir, "ckpt.pt")
+    if os.path.isdir(ckpt):
+        mngr = CheckpointManager(ckpt)
+        step = mngr.latest_step()
+        ckpt = (mngr.path(step) if step is not None
+                else os.path.join(ckpt, "ckpt.pt"))
     if args.torch_checkpoint:
         from occnet_tpu_torch.utils.torch_convert import (
             load_bevformer_into_state_dict)
@@ -213,13 +278,13 @@ def main(argv: Optional[Sequence[str]] = None,
             ref.get("state_dict", ref),
             depth=int(m.backbone.type.replace("resnet", "")),
             num_encoder_layers=m.encoder.num_layers)
-        print(f"loaded reference torch checkpoint {args.torch_checkpoint}")
+        print0(f"loaded reference torch checkpoint {args.torch_checkpoint}")
     elif os.path.exists(ckpt):
         saved = torch.load(ckpt, map_location="cpu", weights_only=True)
         sd = saved["model"]
-        print(f"loaded checkpoint {ckpt} (step {saved['step']})")
+        print0(f"loaded checkpoint {ckpt} (step {saved['step']})")
     else:
-        print("WARNING: no checkpoint found: evaluating random weights")
+        print0("WARNING: no checkpoint found: evaluating random weights")
         sd = from_jax_variables(init_jax_style_variables(cfg, seed=0))
     pred = Predictor(cfg, sd, device)
 
@@ -239,7 +304,7 @@ def main(argv: Optional[Sequence[str]] = None,
             cfg = apply_overrides(cfg, {"model.backbone.dcn_window_radii":
                                         dcn_radii})
             pred = Predictor(cfg, sd, device)
-            print(f"auto DCN radii (per layer, probe on frame 0): "
+            print0(f"auto DCN radii (per layer, probe on frame 0): "
                   f"{list(dcn_radii)} (configured R={bb.dcn_window_radius}; "
                   f"--no-auto-dcn-radius pins it)")
     del sd
@@ -251,20 +316,26 @@ def main(argv: Optional[Sequence[str]] = None,
     results, pending, load_ms, tokens = {}, [], [], []
     overflow = torch.zeros((), dtype=torch.int64, device=device)
 
+    # the frames' counts are kept apart, gathered from every rank and
+    # summed in the split's frame order: the float64 flow-error sums then
+    # add in the single-process order, so the totals are bitwise its own
+    frame_counts = []
+
     def flush():
-        for c in pending:
-            acc.update_counts(c)
+        frame_counts.extend({k: c[k].cpu().numpy().astype(
+            getattr(acc, k).dtype) for k in COUNT_KEYS} for c in pending)
         pending.clear()
 
     t0 = time.time()
+    n_local = len(order)
     with ThreadPoolExecutor(max_workers=2) as pool:
-        depth = min(4, n)
+        depth = min(4, n_local)
         futures = [pool.submit(_timed_sample, dataset, int(order[i]))
                    for i in range(depth)]
-        for i in range(n):
+        for i in range(n_local):
             s, ms = futures.pop(0).result()
             load_ms.append(ms)
-            if i + depth < n:
+            if i + depth < n_local:
                 futures.append(pool.submit(_timed_sample, dataset,
                                            int(order[i + depth])))
             if mark:
@@ -299,10 +370,10 @@ def main(argv: Optional[Sequence[str]] = None,
                 if len(pending) >= FLUSH:
                     flush()
             if (i + 1) % 50 == 0:
-                print(f"{i + 1}/{n}  "
-                      f"{(time.time() - t0) / (i + 1):.2f}s/frame")
+                print0(f"{i + 1}/{n_local}  "
+                       f"{(time.time() - t0) / (i + 1):.2f}s/frame")
     flush()
-    overflow = int(overflow)
+    overflow = int(np.sum(allgather_host(np.int64(overflow.item()))))
     if overflow > 0:
         msg = (f"exactness-certificate overflow={overflow}: the SCA top-K "
                f"dropped visible BEV queries and/or DCN samples lie outside "
@@ -318,16 +389,45 @@ def main(argv: Optional[Sequence[str]] = None,
                "per_cam_topk": per_cam_topk, "dcn_radii": dcn_radii,
                "load_ms": load_ms}
     if args.eval:
+        # every rank's frame counts (the reference's collect_results_cpu
+        # without its tmpdir pickles), zero-padded to the shard length and
+        # given a rank axis (allgather_host adds none on one process)
+        rows = max(shard_len, 1)
+        zero = {k: np.zeros_like(getattr(acc, k)) for k in COUNT_KEYS}
+        g = allgather_host({
+            "n": np.int64(len(frame_counts)),
+            **{k: np.stack([f[k] for f in frame_counts] + [zero[k]] * (
+                rows - len(frame_counts))) for k in COUNT_KEYS}})
+        n_of = np.reshape(g["n"], world)
+        g = {k: np.reshape(g[k], (world, rows) + zero[k].shape)
+             for k in COUNT_KEYS}
+        for r in range(world):
+            for i in range(int(n_of[r])):
+                acc.update_counts({k: g[k][r, i] for k in COUNT_KEYS})
+        summary["counts"] = {k: np.asarray(getattr(acc, k))
+                             for k in COUNT_KEYS + ("num_samples",)}
         metrics = acc.finalize()
-        print(format_metrics_table(metrics))
         scores = occ_score_from_metrics(metrics)
-        print(json.dumps(scores, indent=2))
-        with open(os.path.join(work_dir, "eval_results.json"), "w") as f:
-            json.dump(scores, f)
+        if rank == 0:
+            print(format_metrics_table(metrics))
+            print(json.dumps(scores, indent=2))
+            with open(os.path.join(work_dir, "eval_results.json"), "w") as f:
+                json.dump(scores, f)
         summary["scores"] = scores
     if args.format_only:
-        save_submission(args.out, results)
-        print(f"wrote {args.out}")
+        if world == 1:
+            save_submission(args.out, results)
+            print(f"wrote {args.out}")
+        else:
+            save_submission(f"{args.out}.part{rank}", results)
+            barrier("submission_parts")
+            if rank == 0:
+                parts = [f"{args.out}.part{r}" for r in range(world)]
+                cnt = merge_submissions(parts, args.out)
+                for p in parts:
+                    os.remove(p)
+                print(f"wrote {args.out} ({cnt} samples)")
+            barrier("submission")
     return summary
 
 

@@ -17,8 +17,8 @@ CUDA device the CLI exits and names that flag.  Config selection and dotted
 JAX package's initialisers from ``--seed``; ``--backbone-checkpoint`` loads
 a torchvision ResNet state_dict into the backbone
 (`utils.torch_convert.load_resnet_into_state_dict`, conv1 flipped to RGB).
-``--autoscale-lr`` scales the learning rate by the data-parallel size (1)
-over the reference's 8 GPUs.  Three data sources:
+``--autoscale-lr`` scales the learning rate by the data-parallel size (the
+world size) over the reference's 8 GPUs.  Three data sources:
 
 - by default the nuScenes / OpenOcc train split of ``data.data_root``
   (`data.nuscenes.build_train_dataset`: ``data.train_ann``, plus
@@ -48,19 +48,34 @@ Datasets are shuffled per epoch (epoch = clips or frames // batch steps).
 reference's dynamic_intervals).
 
 Logs loss, grad_norm and lr every ``--log-interval`` steps (default every
-step), writes ``metrics.jsonl`` (evaluations tagged "eval") and a checkpoint
-(``ckpt.pt``) every ``--ckpt-interval-epochs`` epochs and at the last step
-under ``--work-dir``; ``--resume`` continues from it.  The exactness
-certificates (`cert_overflow`) are summed on the device and checked at every
-log: a nonzero sum aborts the run.  Returns the logged metrics, evaluations
-included.  Not carried yet: ``--distributed`` and ``--profile`` (ROADMAP
-Queue 1 item 5).
+step) and writes ``metrics.jsonl`` in the JAX package's format
+(`utils.events.JsonlWriter`: ``ts``, ``step``, ``tag`` "train", "abort",
+"eval" and, at the end on a card, "hbm" with the peak allocated bytes).
+Checkpoints go to ``--work-dir`` every ``--ckpt-interval-epochs`` epochs and
+at the last step through `training.checkpoint.CheckpointManager`: the last
+3 as ``ckpt_<step>.pt``, ``ckpt.pt`` a link to the newest, written on a
+background thread; ``--resume`` continues from the newest (or from a lone
+``ckpt.pt``).  The exactness certificates (`cert_overflow`) are summed on
+the device and checked at every log: a nonzero sum aborts the run.
+``--profile N`` traces steps step0+2 .. step0+2+N with `torch.profiler`
+into ``<work-dir>/trace`` (a Chrome trace a rank).  Returns the logged
+metrics, evaluations included.
+
+``--distributed`` trains data-parallel over the ranks of a launcher
+(`torchrun`, `tools/dist_train.sh`; without its environment the run is one
+process): each rank holds one device and ``data.batch_size_per_device``
+samples, loads its `data.sampler.shuffled_shard_indices` shard of each
+epoch, and takes the global step (`training.train` describes how); an
+epoch is frames // (world x batch) steps.  ``--dist-backend`` picks NCCL
+(the default on the card: one card a rank) or gloo (the CPU, or ranks
+sharing a card).  Rank 0 logs, writes the events and the checkpoints;
+every rank runs the eval hook, as the JAX CLI does, and rank 0 writes its
+scores.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import logging
 import os
 import time
@@ -78,7 +93,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--config", default="turbo_occ")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--resume", action="store_true",
-                   help="continue from <work-dir>/ckpt.pt if it exists")
+                   help="continue from the newest checkpoint of "
+                        "<work-dir> if there is one")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-steps", type=int, default=None,
                    help="cap total steps (smoke runs)")
@@ -93,8 +109,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="ray-cast the synthetic scenes at 1/N resolution "
                         "and pixel-repeat up to the model size")
     p.add_argument("--ckpt-interval-epochs", type=int, default=1,
-                   help="save <work-dir>/ckpt.pt every N epochs and at the "
-                        "last step")
+                   help="checkpoint every N epochs and at the last step "
+                        "(the last 3 kept)")
     p.add_argument("--eval-interval-epochs", type=int, default=0,
                    help="run ray-metric evaluation on the val split every N "
                         "epochs (0 = off)")
@@ -115,9 +131,16 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         "clips of the data root: frames 0..N-2 give the "
                         "history BEV without gradients, frame N-1 is "
                         "supervised (0 or 1: single-frame training)")
-    for flag in ("--distributed", "--profile"):
-        p.add_argument(flag, default=None, nargs="?", const=True,
-                       help="not ported yet (ROADMAP Queue 1 item 5)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over the ranks of torchrun's "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT); one process without it")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl with a card, "
+                        "gloo without)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="trace N steps (after a 2-step warm-up) with "
+                        "torch.profiler into <work-dir>/trace")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
     p.add_argument("--device", default="cuda",
@@ -172,53 +195,74 @@ def to_device(batch: Dict[str, np.ndarray], device
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
+    from occnet_tpu_torch import parallel
+    from occnet_tpu_torch.parallel import multihost
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("occnet_tpu_torch.tools.train: no CUDA device is "
+                         "available; pass --device cpu to train on the CPU")
+    joined = (args.distributed and not multihost.is_initialized()
+              and parallel.initialize(args.dist_backend))
+    try:
+        if args.distributed:
+            device = multihost.local_device(device)
+        return _train(args, device)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _train(args, device: torch.device):
+    import contextlib
     from occnet_tpu_torch.config import apply_overrides, get_config
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
     from occnet_tpu_torch.data.loader import PrefetchLoader
     from occnet_tpu_torch.data.sampler import shuffled_shard_indices
+    from occnet_tpu_torch.parallel import process_shard, shard_batch
+    from occnet_tpu_torch.parallel.mesh import make_mesh
+    from occnet_tpu_torch.parallel.multihost import broadcast_module
     from occnet_tpu_torch.serve import Predictor
     from occnet_tpu_torch.training import checkpoint, eval_loop
     from occnet_tpu_torch.training.temporal import make_temporal_train_step
     from occnet_tpu_torch.training.train import (create_train_state,
                                                  make_train_step)
+    from occnet_tpu_torch.utils.events import JsonlWriter
+    from occnet_tpu_torch.utils.profiling import device_sync, trace
 
-    for flag in ("distributed", "profile"):
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"occnet_tpu_torch.tools.train: --{flag} is "
-                             f"not ported yet (ROADMAP Queue 1 item 5)")
     temporal = args.temporal_queue > 1
     if temporal and (args.synthetic_data or args.synthetic_geometric):
         raise SystemExit("occnet_tpu_torch.tools.train: --temporal-queue "
                          "trains on the scene clips of a data root; "
                          "--synthetic-data and --synthetic-geometric make "
                          "single frames with no clips")
+    rank, world = process_shard()
     cfg = get_config(args.config)
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("occnet_tpu_torch.tools.train: no CUDA device is "
-                         "available; pass --device cpu to train on the CPU")
     work_dir = args.work_dir or os.path.join("work_dirs", "torch_" +
                                              args.config)
     os.makedirs(work_dir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s",
                         force=True)
     log = logging.getLogger("occnet_tpu_torch")
-    log.info("device: %s (%s)", device, torch.cuda.get_device_name(device)
-             if device.type == "cuda" else "host CPU")
+    log.info("device: %s (%s)%s", device, torch.cuda.get_device_name(device)
+             if device.type == "cuda" else "host CPU",
+             f"; rank 0 of {world}" if world > 1 else "")
     log.info("config: %s", cfg)
 
+    n_dp = make_mesh(cfg.parallel.dp, cfg.parallel.mp)
     batch_size = cfg.data.batch_size_per_device
+    global_batch = batch_size * n_dp
     if args.autoscale_lr:
         # linear scaling against the reference's 8-GPU recipe
-        # (`tools/train.py:159-161`: lr * n_gpus / 8), one device here
-        n_dp = 1
+        # (`tools/train.py:159-161`: lr * n_gpus / 8)
         cfg = apply_overrides(cfg, {"optim.lr": cfg.optim.lr * n_dp / 8.0})
         log.info("autoscale-lr: %.3e (dp=%d)", cfg.optim.lr, n_dp)
     # dynamic eval intervals: sorted (milestone epoch, interval) pairs; the
@@ -249,7 +293,7 @@ def main(argv: Optional[Sequence[str]] = None):
                 seed=0, training=False,
                 render_scale=args.synthetic_render_scale,
                 device_normalize=True, device=device)
-        steps_per_epoch = max(len(dataset) // batch_size, 1)
+        steps_per_epoch = max(len(dataset) // global_batch, 1)
         cfg = apply_overrides(cfg, {"optim.steps_per_epoch":
                                     str(steps_per_epoch)})
         log.info("synthetic-geometric dataset: %d scenes (%.1f ms a scene "
@@ -273,15 +317,17 @@ def main(argv: Optional[Sequence[str]] = None):
             val_dataset = NuSceneOccDataset(
                 cfg.data, os.path.join(cfg.data.data_root, cfg.data.val_ann),
                 training=False)
-        steps_per_epoch = max(len(dataset) // batch_size, 1)
+        steps_per_epoch = max(len(dataset) // global_batch, 1)
         cfg = apply_overrides(cfg, {"optim.steps_per_epoch":
                                     str(steps_per_epoch)})
         log.info("dataset: %d %s, %d steps/epoch", len(dataset),
                  f"{args.temporal_queue}-frame clips" if temporal
                  else "frames", steps_per_epoch)
     else:
-        batch = to_device(make_synthetic_batch(
-            cfg, batch_size, np.random.RandomState(args.seed)), device)
+        # the global batch from the seed; each rank takes its part
+        batch = to_device(shard_batch(make_synthetic_batch(
+            cfg, global_batch, np.random.RandomState(args.seed)), n_dp),
+            device)
     t0 = time.time()
     sd = from_jax_variables(init_jax_style_variables(cfg, seed=args.seed))
     if args.backbone_checkpoint:
@@ -298,10 +344,16 @@ def main(argv: Optional[Sequence[str]] = None):
     n_params = sum(p.numel() for p in state.model.parameters())
     log.info("model init in %.1fs — %.2fM params", time.time() - t0,
              n_params / 1e6)
-    ckpt_path = os.path.join(work_dir, "ckpt.pt")
-    if args.resume and os.path.exists(ckpt_path):
-        checkpoint.restore(ckpt_path, state)
+    ckpt = checkpoint.CheckpointManager(work_dir)
+    lone = os.path.join(work_dir, checkpoint.LATEST)
+    if args.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
         log.info("resumed from step %d", state.step)
+    elif args.resume and os.path.exists(lone):
+        checkpoint.restore(lone, state)
+        log.info("resumed from step %d (%s)", state.step, lone)
+    # every rank starts from rank 0's parameters and statistics
+    broadcast_module(state.model)
 
     step_fn = (make_temporal_train_step if temporal else make_train_step)(
         cfg, seed=args.seed)
@@ -310,16 +362,31 @@ def main(argv: Optional[Sequence[str]] = None):
         total_steps = min(total_steps, args.max_steps)
     step0 = state.step
     epoch_len = cfg.optim.steps_per_epoch
+    profile_start = step0 + 2 if args.profile else None
+    trace_dir = os.path.join(work_dir, "trace")
+    profiler = contextlib.ExitStack()
+    events = (JsonlWriter(os.path.join(work_dir, "metrics.jsonl"))
+              if rank == 0 else None)
     history = []
     t_start = time.time()
     loader_iter, loader_epoch = None, -1
-    with open(os.path.join(work_dir, "metrics.jsonl"), "a") as events:
+    try:
         for step in range(step0, total_steps):
+            if step == profile_start:
+                device_sync()             # trace only the profiled steps
+                profiler.enter_context(trace(trace_dir))
+            if profile_start is not None \
+                    and step == profile_start + args.profile:
+                profiler.close()
+                log.info("profiler trace (%d steps) written to %s",
+                         args.profile, trace_dir)
             if dataset is not None:
                 epoch = step // epoch_len
                 if epoch != loader_epoch:
-                    order = shuffled_shard_indices(len(dataset), 1, 0, epoch,
-                                                   cfg.seed)
+                    # this rank's shard of the epoch's permutation (the
+                    # reference's DistributedGroupSampler)
+                    order = shuffled_shard_indices(len(dataset), world, rank,
+                                                   epoch, cfg.seed)
                     skip = (step % epoch_len) * batch_size
                     loader_iter = iter(PrefetchLoader(
                         dataset, batch_size, order[skip:], seed=cfg.seed,
@@ -342,8 +409,8 @@ def main(argv: Optional[Sequence[str]] = None):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["cert_overflow"] = float(overflow)
                 if m["cert_overflow"]:
-                    events.write(json.dumps({"step": step, "tag": "abort",
-                                             **m}) + "\n")
+                    if events is not None:
+                        events.write(step, tag="abort", **m)
                     raise SystemExit(
                         f"exactness certificate violated at or before step "
                         f"{step}: {int(m['cert_overflow'])} overflowed "
@@ -360,13 +427,14 @@ def main(argv: Optional[Sequence[str]] = None):
                          "gnorm %.2f lr %.2e  %.2fs/it", step, total_steps,
                          m["loss"], m["loss_occ"], m["loss_flow"],
                          m["grad_norm"], m["lr"], dt)
-                events.write(json.dumps({"step": step, "s_per_it": dt, **m})
-                             + "\n")
+                if events is not None:
+                    events.write(step, s_per_it=dt, **m)
                 history.append({"step": step, **m})
             if ((step + 1) % (epoch_len * args.ckpt_interval_epochs) == 0
                     or step == total_steps - 1):
-                checkpoint.save(ckpt_path, state, cfg)
-                log.info("checkpoint @ step %d: %s", state.step, ckpt_path)
+                ckpt.save(state.step, state, cfg)
+                log.info("checkpoint @ step %d: %s", state.step,
+                         ckpt.path(state.step))
             epoch_now = step // epoch_len
             interval = eval_interval_at(epoch_now)
             if (val_dataset is not None and interval
@@ -375,12 +443,22 @@ def main(argv: Optional[Sequence[str]] = None):
                 scores = eval_loop.run_evaluation(
                     cfg, Predictor.wrap(cfg, state.model), val_dataset,
                     log=log.info)
-                events.write(json.dumps({"step": step + 1, "tag": "eval",
-                                         **scores}) + "\n")
+                if events is not None:
+                    events.write(step + 1, tag="eval", **scores)
                 history.append({"step": step + 1, "tag": "eval", **scores})
-    if device.type == "cuda":
-        log.info("peak allocated: %.3f GiB",
-                 torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        profiler.close()
+        ckpt.close()
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device)
+            log.info("peak allocated: %.3f GiB", peak / 2 ** 30)
+            if events is not None:
+                events.write(total_steps, tag="hbm",
+                             peak_bytes_in_use=int(peak),
+                             source="torch.cuda.max_memory_allocated")
+    finally:
+        profiler.close()
+        if events is not None:
+            events.close()
     log.info("done: %d steps", total_steps - step0)
     return history
 

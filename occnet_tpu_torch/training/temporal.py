@@ -39,8 +39,9 @@ from occnet_tpu_torch.ops.transforms import rotate_bev, shift_bev_ref
 from occnet_tpu_torch.training.train import (
     TrainState,
     apply_gradients,
+    global_metrics,
     make_lr_schedule,
-    step_generator,
+    step_generators,
 )
 
 
@@ -133,8 +134,12 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
     prev_exists (B, T), shift (B, 2), and the last frame's voxel_semantics
     / voxel_flow.  The grid mask and dropout fall on the supervised frame
     only.  Metrics as `make_train_step`'s; cert_overflow also counts the
-    history frames.  ``mark(name)`` is called after the "history",
-    "forward", "backward" and "optimizer" phases."""
+    history frames.  Under a process group the step follows
+    `make_train_step`'s four rules (`training.train`); the history frames
+    run in inference mode and without gradients, so they need no
+    collective.  ``mark(name)`` is called after the "history", "forward",
+    "backward" and "optimizer" phases (and the gradient "allreduce" under
+    a process group)."""
     m = cfg.model
     schedule = make_lr_schedule(cfg)
     augment = make_device_train_augmenter(
@@ -149,8 +154,8 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
         t = ego2img.shape[1]
         if t < 2:
             raise ValueError(f"a clip step needs T >= 2 frames, got {t}")
-        gen = step_generator(seed, state.step, dev)
-        img = augment(gen, batch["img"])
+        gen, drop, rank, world = step_generators(seed, state.step, dev)
+        img = augment(gen, batch["img"], (rank, world))
         prev_bev, cert = history(
             state.model, img[:, :-1], ego2img[:, :-1],
             batch["rot_deg"][:, :-1], batch["shifts"][:, :-1],
@@ -164,7 +169,8 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
         shift_ref = (_reference_grid(cfg, dev)
                      + batch["shift"][:, None, None, :])
         outs = state.model(img[:, -1], ego2img[:, -1], prev_bev=prev_bev,
-                           shift_ref_2d=shift_ref, train=True, generator=gen)
+                           shift_ref_2d=shift_ref, train=True, generator=gen,
+                           dropout_generator=drop)
         loss_occ, loss_flow = occ_flow_loss(
             outs["occ"], outs["flow"], batch["voxel_semantics"],
             batch["voxel_flow"], cfg.loss)
@@ -175,16 +181,18 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
         loss.backward()
         if mark:
             mark("backward")
-        grad_norm, lr = apply_gradients(state, cfg, schedule)
+        grad_norm, lr = apply_gradients(state, cfg, schedule, mark)
         if mark:
             mark("optimizer")
         state.step += 1
         cert = _sum_certificates(outs, cert)
         if cert is None:
             cert = torch.zeros((), dtype=torch.int64, device=dev)
-        return {"loss": loss.detach(), "loss_occ": loss_occ.detach(),
-                "loss_flow": loss_flow.detach(), "grad_norm": grad_norm,
-                "lr": torch.tensor(lr), "cert_overflow": cert}
+        loss, loss_occ, loss_flow, cert = global_metrics(
+            loss, loss_occ, loss_flow, cert)
+        return {"loss": loss, "loss_occ": loss_occ, "loss_flow": loss_flow,
+                "grad_norm": grad_norm, "lr": torch.tensor(lr),
+                "cert_overflow": cert}
 
     return train_step
 

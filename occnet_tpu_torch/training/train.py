@@ -18,6 +18,30 @@ Randomness: each step draws its grid mask, photometric distortion and dropout
 masks from one `torch.Generator` on the model's device, seeded from
 (seed, step) as the JAX package folds the step into its key.
 
+Data parallelism (`occnet_tpu_torch.parallel`): under a process group of
+N ranks with B_local = b each, the step is the single-process step at
+B = N * b, as the JAX step is one program over the global batch, up to the
+order of floating-point sums.  Four places make it so:
+
+1. batch statistics: the decoder's `BatchNorm3d` and the trunk's
+   `TrainableBatchNorm` reduce over the global batch (all-reduces inside);
+2. loss normalisers: the weighted and masked means of `occ_flow_loss`
+   divide by the global weight sums, and the logged losses are the global
+   ones (the ranks' shares averaged);
+3. random draws: every rank draws the global batch's photometric
+   parameters and the one grid mask from the (seed, step) generator and
+   applies its own slice, so a rank's images are those of the B = N * b
+   step.  Dropout masks would need global-shaped activations, so at N > 1
+   they come from a generator of (seed, step, rank);
+4. gradients: one flat all-reduce per dtype after `backward()` averages
+   them (`parallel.multihost.all_reduce_mean_`) before the global-norm
+   clip, so every rank clips by the same norm and takes the same AdamW
+   update from the same parameters; `cert_overflow` is summed over the
+   ranks.  A flat all-reduce rather than `DistributedDataParallel`: the
+   frozen stages run under `no_grad` and the temporal step's history
+   forwards run without gradients, two cases DDP's reducer must be told
+   about, and the step needs the global gradient only at one point.
+
 Every named config trains: the dense and gather encoders, plain and DCN
 trunks (their backward kernels behind the autograd Functions of
 `ops/planar_lift`, `ops/tsa`, `ops/msda` and `ops/deform_conv`).
@@ -27,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,6 +59,12 @@ from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.data.pipeline import make_device_train_augmenter
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.models.head import occ_flow_loss
+from occnet_tpu_torch.parallel.multihost import (
+    all_reduce_,
+    all_reduce_mean_,
+    process_shard,
+    world_size,
+)
 
 
 def make_lr_schedule(cfg: OccNetConfig) -> Callable[[int], float]:
@@ -123,16 +153,23 @@ def create_train_state(cfg: OccNetConfig, state_dict: Dict[str, torch.Tensor],
 
 
 def apply_gradients(state: TrainState, cfg: OccNetConfig,
-                    schedule: Callable[[int], float]):
+                    schedule: Callable[[int], float],
+                    mark: Optional[Callable[[str], None]] = None):
     """The optimizer half of a step on the ``.grad`` already in place:
     zero gradients for unused trainable leaves (optax still decays them),
-    global-norm clip, lr(step) * mult per group, AdamW.  Returns
-    (pre-clip grad norm tensor, lr).  Does not advance ``state.step``."""
+    under a process group the gradient average over the ranks (then
+    ``mark("allreduce")``), global-norm clip, lr(step) * mult per group,
+    AdamW.  Returns (pre-clip grad norm tensor, lr).  Does not advance
+    ``state.step``."""
     opt = state.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if world_size() > 1:
+        all_reduce_mean_([p.grad for p in params])
+        if mark:
+            mark("allreduce")
     grad_norm = clip_by_global_norm(params, cfg.optim.grad_clip_norm)
     lr = schedule(state.step)
     for group in opt.param_groups:
@@ -147,6 +184,45 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (seed * 1_000_003 + step) % 2 ** 63)
 
 
+def step_generators(seed: int, step: int, device
+                    ) -> Tuple[torch.Generator, torch.Generator, int, int]:
+    """(the step's generator, the dropout generator, rank, world size): the
+    dropout generator is the step's own at world size 1 and a generator of
+    (seed, step, rank) under a process group (see the module doc)."""
+    rank, world = process_shard()
+    gen = step_generator(seed, step, device)
+    if world == 1:
+        return gen, gen, rank, world
+    drop = torch.Generator(device=device).manual_seed(
+        ((seed * 1_000_003 + step) * 65_537 + rank + 1) % 2 ** 63)
+    return gen, drop, rank, world
+
+
+def global_metrics(loss: torch.Tensor, loss_occ: torch.Tensor,
+                   loss_flow: torch.Tensor, cert: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The logged losses (detached) and certificate sum over the global
+    batch: the ranks' loss shares averaged, the certificates summed
+    (int64); the local values at world size 1."""
+    losses = torch.stack([loss, loss_occ, loss_flow]).detach()
+    world = world_size()
+    if world > 1:
+        losses = all_reduce_(losses) / world
+        cert = all_reduce_(cert.clone())
+    return losses[0], losses[1], losses[2], cert
+
+
+def grad_checker(model: torch.nn.Module, threshold: float = 0.0
+                 ) -> List[str]:
+    """Dead-parameter detector (`occnet_tpu.training.train.grad_checker`,
+    the reference's GradChecker hook, `models/hooks/hooks.py:5-11`): the
+    names of parameters whose gradient is absent or identically zero
+    (max |g| <= ``threshold``)."""
+    return [n for n, p in model.named_parameters()
+            if p.grad is None or float(p.grad.abs().max()) <= threshold]
+
+
 def make_train_step(cfg: OccNetConfig, seed: int = 0):
     """Returns ``train_step(state, batch, mark=None) -> metrics``.
 
@@ -159,8 +235,11 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
     `*_overflow` certificate of the forward, the gather encoder's
     `sca_topk_overflow` and the window DCN's `dcn_window_overflow`, as
     `occnet_tpu.training.train.collect_overflow` sums them; 0 when the
-    config has neither).  ``mark(name)``, when given, is called after
-    the "forward", "backward" and "optimizer" phases (for timing)."""
+    config has neither); under a process group the losses and the
+    certificates are the global batch's (see the module doc).
+    ``mark(name)``, when given, is called after the "forward", "backward"
+    and "optimizer" phases (for timing), and under a process group after
+    the gradient "allreduce"."""
     schedule = make_lr_schedule(cfg)
     augment = make_device_train_augmenter(
         cfg.data, distort=cfg.data.device_distortion)
@@ -169,9 +248,10 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
         dev = batch["ego2img"].device
-        gen = step_generator(seed, state.step, dev)
-        img = augment(gen, batch["img"])
-        outs = state.model(img, batch["ego2img"], train=True, generator=gen)
+        gen, drop, rank, world = step_generators(seed, state.step, dev)
+        img = augment(gen, batch["img"], (rank, world))
+        outs = state.model(img, batch["ego2img"], train=True, generator=gen,
+                           dropout_generator=drop)
         loss_occ, loss_flow = occ_flow_loss(
             outs["occ"], outs["flow"], batch["voxel_semantics"],
             batch["voxel_flow"], cfg.loss,
@@ -183,7 +263,7 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
         loss.backward()
         if mark:
             mark("backward")
-        grad_norm, lr = apply_gradients(state, cfg, schedule)
+        grad_norm, lr = apply_gradients(state, cfg, schedule, mark)
         if mark:
             mark("optimizer")
         state.step += 1
@@ -191,8 +271,10 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
         for k, v in outs.items():
             if k.endswith("_overflow"):
                 cert = cert + v
-        return {"loss": loss.detach(), "loss_occ": loss_occ.detach(),
-                "loss_flow": loss_flow.detach(), "grad_norm": grad_norm,
-                "lr": torch.tensor(lr), "cert_overflow": cert}
+        loss, loss_occ, loss_flow, cert = global_metrics(
+            loss, loss_occ, loss_flow, cert)
+        return {"loss": loss, "loss_occ": loss_occ, "loss_flow": loss_flow,
+                "grad_norm": grad_norm, "lr": torch.tensor(lr),
+                "cert_overflow": cert}
 
     return train_step

@@ -14,6 +14,7 @@ import torch
 
 from occnet_tpu import config as jax_config
 from occnet_tpu_torch import config
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -91,14 +92,20 @@ def test_port_modules_import_without_the_jax_package():
     assert {f"occnet_tpu_torch.{m}" for m in (
         "ops.transforms", "training.temporal", "data.clips")} <= mods, \
         r.stdout
+    # and the runtime slice's
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.multihost",
+        "training.checkpoint", "utils.events", "utils.profiling", "entry",
+        "tools.bench", "tools.step_noise")} <= mods, r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
     """With no CUDA device and no --device, the train CLI, the test CLI and
     the ray-casting CLI exit naming `--device cpu` before they write
-    anything; with it, the train CLI trains.  The train CLI's flags not
-    ported yet exit naming their ROADMAP item, and --temporal-queue exits
-    on a synthetic source, which has no clips."""
+    anything; with it, the train CLI trains.  --distributed asking for
+    NCCL without a card raises naming gloo (never carries on without the
+    device), and --temporal-queue exits on a synthetic source, which has no
+    clips."""
     from occnet_tpu_torch.tools import ray_casting, test, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -109,9 +116,12 @@ def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
             "model.encoder.num_layers=1", "model.encoder.ffn_dim=32"]
     with pytest.raises(SystemExit, match="--device cpu"):
         train.main(argv)
-    for flag in ("--distributed", "--profile=3"):
-        with pytest.raises(SystemExit, match="Queue 1 item 5"):
-            train.main(argv + [flag, "--device", "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    for cli in (train, test):
+        with pytest.raises(RuntimeError, match="gloo"):
+            cli.main(argv[:2] + ["--distributed", "--dist-backend", "nccl",
+                                 "--device", "cpu"])
+    monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(SystemExit, match="no clips"):
         train.main(argv + ["--temporal-queue=2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--device cpu"):

@@ -31,6 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_cli import _write_miniset  # noqa: E402
 from test_convert_vis import _fake_torchvision_resnet50_sd  # noqa: E402
 from test_full_convert import _fabricate_state_dict  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _small_gather_cfg():

@@ -41,6 +41,7 @@ from occnet_tpu_torch.ops.dcn_window import (
     window_supported,
 )
 from occnet_tpu_torch.serve import Predictor
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # fp32 sampling against fp32: the bound of tests/test_dcn_window.py:38
 TOL = 2e-4

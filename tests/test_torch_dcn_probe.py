@@ -28,6 +28,7 @@ from occnet_tpu_torch.tools import test as test_cli
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_cli import _write_miniset  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 SMALL = ["model.backbone.type=resnet50", "model.img_h=64", "model.img_w=96",
          "model.bev_h=10", "model.bev_w=10", "model.pillar_h=4",

@@ -31,6 +31,7 @@ from occnet_tpu_torch.evaluation import ego_pose
 from occnet_tpu_torch.evaluation import ray_metrics as rm
 from occnet_tpu_torch.serve import Predictor
 from occnet_tpu_torch.training.eval_loop import run_evaluation
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 OCC_SIZE = (20, 20, 6)
 PC_RANGE = (-8.0, -8.0, -1.0, 8.0, 8.0, 3.8)    # cubic 0.8 m voxels

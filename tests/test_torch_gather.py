@@ -38,6 +38,7 @@ from occnet_tpu_torch.models.attention import (
 )
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.serve import Predictor
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the whole model: the bound of tests/test_parity_oracle.py:181-186
 MODEL_TOL = 1e-4

@@ -17,6 +17,7 @@ from occnet_tpu.ops.lift_pallas import lift_and_average_pallas
 from occnet_tpu.ops.planar_lift import lift_and_average as lift_jax
 from occnet_tpu_torch.ops import planar_lift
 from occnet_tpu_torch.ops.lift_cuda import lift_level, lift_level_bwd
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 PC_RANGE = (-40.0, -40.0, -1.0, 40.0, 40.0, 5.4)
 IMG_HW = (64, 96)

@@ -19,6 +19,7 @@ from occnet_tpu_torch.ops.lift_pass2 import lift_pass2
 Z, BEV_H, A, M, C = 2, 8, 3, 16, 16
 W, H = 24, 16
 ZR, ZR_PAD = Z * BEV_H, 24
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _inputs(seed):

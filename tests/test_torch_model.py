@@ -32,6 +32,7 @@ from occnet_tpu_torch.data.pipeline import make_device_normalizer
 from occnet_tpu_torch.models.dense_attention import DenseTemporalSelfAttention
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.serve import Predictor
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

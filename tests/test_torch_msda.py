@@ -17,6 +17,7 @@ from occnet_tpu_torch.ops import msda as port
 
 # fp32 against fp32: the bound of tests/test_msda.py (summation order only)
 ATOL, RTOL = 2e-5, 1e-5
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 # bf16 values: both round the fp32 sum to bf16 once (tests/test_msda.py)
 BF16_TOL = 6e-3
 

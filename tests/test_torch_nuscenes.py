@@ -31,6 +31,7 @@ from test_cli import _write_miniset  # noqa: E402
 from test_data import _synthetic_info  # noqa: E402
 from test_devkit_ego_pose import _fabricate  # noqa: E402
 from torch_jpeg_fixtures import FIXTURES, NAMES, pixel_digest  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 IMG_HW = (64, 96)
 GRID = (10, 10, 4)

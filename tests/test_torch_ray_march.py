@@ -22,6 +22,7 @@ from occnet_tpu.ops.ray_march_vec import dda_raymarch_fan_vec as jax_fan
 from occnet_tpu_torch.evaluation.ray_metrics import fan_parameters
 from occnet_tpu_torch.ops import ray_march, ray_march_vec
 from occnet_tpu_torch.ops.lift_pass2 import lift_pass2_cuda
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 DIST_RTOL = 1e-6
 

@@ -20,6 +20,7 @@ from occnet_tpu_torch.tools import ray_casting as ray_casting_cli
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_cli import _write_miniset  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 GRID = (200, 200, 16)
 # float16 point clouds of one grid rendered by the two packages: the

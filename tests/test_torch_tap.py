@@ -22,6 +22,7 @@ from occnet_tpu_torch.ops.tsa import (
     tap_attention,
     tap_attention_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _case(B=1, nq=2, H=16, W=16, heads=4, D=8, seed=0):

@@ -38,6 +38,7 @@ from occnet_tpu_torch.tools import test as test_cli
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_cli import _write_miniset  # noqa: E402
 from test_full_convert import _fabricate_state_dict  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # tiny_occ at the size of tests/test_full_convert.py's model (one encoder
 # layer, the fabricated checkpoint's layout) in fp32, its 50 x 50 x 8 grid

@@ -54,6 +54,7 @@ from occnet_tpu_torch.training.train import (
     make_lr_schedule,
     make_train_step,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def small_cfg(norm_eval=True, frozen_stages=1, deterministic=True):

@@ -6,6 +6,7 @@ that the test runner spreads these runs apart from `test_torch_train.py`."""
 
 import dataclasses
 import json
+import os
 import shutil
 
 import numpy as np
@@ -17,6 +18,7 @@ from occnet_tpu_torch import convert
 from occnet_tpu_torch.tools import train as cli
 from occnet_tpu_torch.training import checkpoint
 from occnet_tpu_torch.training.train import create_train_state, make_train_step
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the small model of `tests/test_torch_train.small_cfg` as CLI overrides
 CLI_SMALL = ["model.img_h=64", "model.img_w=96", "model.bev_h=10",
@@ -90,10 +92,11 @@ def test_window_dcn_certificate_reaches_the_step_and_aborts_the_cli(
         met["cert_overflow"])
 
 
-def test_cli_saves_every_epoch_and_resumes(tmp_path, monkeypatch):
+def test_cli_saves_every_epoch_and_resumes(tmp_path):
     """`synth_tiny_turbo_occ` (cut to a small model on a 25 x 25 x 4 grid of
     1.6 m voxels) on 4 synthetic scenes at B = 2, two steps an epoch, two
-    epochs: `ckpt.pt` is saved after each epoch (steps 2 and 4).  A run
+    epochs: the checkpoint manager keeps each epoch's checkpoint
+    (`ckpt_2.pt`, `ckpt_4.pt`, `ckpt.pt` a link to the newest).  A run
     stopped in its second epoch leaves the first epoch's checkpoint on disk;
     `--resume` from it restarts at step 2 and ends with the weights of the
     uninterrupted run (1e-6)."""
@@ -101,25 +104,18 @@ def test_cli_saves_every_epoch_and_resumes(tmp_path, monkeypatch):
             "--set", *CLI_SMALL, "model.bev_h=25", "model.bev_w=25",
             "data.occ_size=(25,25,4)", "data.batch_size_per_device=2",
             "data.workers=1", "optim.total_epochs=2"]
-    save = checkpoint.save
-    saved = []
-
-    def keep_each(path, state, cfg):
-        save(path, state, cfg)
-        saved.append(state.step)
-        shutil.copy(path, tmp_path / f"ckpt_{state.step}.pt")
-
-    monkeypatch.setattr(checkpoint, "save", keep_each)
-    _cli(tmp_path / "whole", *args)
-    assert saved == [2, 4]
+    whole = tmp_path / "whole"
+    _cli(whole, *args)
+    assert checkpoint.CheckpointManager(str(whole)).all_steps() == [2, 4]
+    assert os.readlink(whole / "ckpt.pt") == "ckpt_4.pt"
     (tmp_path / "cut").mkdir()
-    shutil.copy(tmp_path / "ckpt_2.pt", tmp_path / "cut" / "ckpt.pt")
+    shutil.copy(whole / "ckpt_2.pt", tmp_path / "cut" / "ckpt_2.pt")
     history = _cli(tmp_path / "cut", "--resume", *args)
     assert [h["step"] for h in history] == [2, 3]
-    assert saved == [2, 4, 4]
-    whole = torch.load(tmp_path / "ckpt_4.pt", weights_only=True)
+    want = torch.load(whole / "ckpt_4.pt", weights_only=True)
     resumed = torch.load(tmp_path / "cut" / "ckpt.pt", weights_only=True)
     assert resumed["step"] == 4
-    for n, a in whole["model"].items():
+    assert json.loads(resumed["config"])["optim"]["total_epochs"] == 2
+    for n, a in want["model"].items():
         torch.testing.assert_close(resumed["model"][n], a, rtol=0, atol=1e-6,
                                    msg=n)

@@ -32,6 +32,7 @@ from tests.test_torch_train_exact import (
     held,
     train_step_against_jax,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 def dcn_case(seed, B=2, h=7, w=9, C=8, stride=1, off_scale=1.5,
              use_mask=True):

@@ -36,6 +36,7 @@ from occnet_tpu_torch.training.train import (
 )
 from tests.test_torch_gather import ring_rig as gather_rig
 from tests.test_torch_gather import small_cfg as gather_cfg
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the plain backward against autograd of the same plain forward: the same
 # fp32 operations summed in other orders

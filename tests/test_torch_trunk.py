@@ -20,6 +20,7 @@ from occnet_tpu_torch.models.fpn import FPN
 from occnet_tpu_torch.models.norm import LayerNorm32
 from occnet_tpu_torch.models.positional import LearnedPositionalEncoding2D
 from occnet_tpu_torch.models.resnet import ResNet, stage_channels
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _load(module: nn.Module, variables, prefix=""):
