@@ -228,6 +228,33 @@ Phases (each raises on failure, so any failure exits nonzero):
               card) with phase 34's checkpoint, --eval --format-only on the
               4 val frames: scores and merged submission equal to the
               single-process test CLI's
+ 36. vovnet parity  every VoVNet preset (models/vovnet.py), fp32, random
+              weights, at an odd 67 x 93 input (the ceil-mode pools hang off
+              the edge), card (cuDNN) vs CPU within MODULE_RTOL
+ 37. vovnet  base_occ with backbone.type = vovnet, V-99-eSE, full width,
+              bf16: REQUESTS served requests (certificate 0, 8 msda launches
+              each, latency, peak), then 1 warm-up + FULL_TRAIN_STEPS train
+              steps through the CLI's step (finite losses, 8 msda + 8
+              msda_bwd launches a step, the frozen stem and stage 2 moved by
+              AdamW's decay alone, every other leaf moved, peak)
+ 38. detection kernels  msda.cu / msda_bwd.cu at the detection decoder's
+              shape (value (1, 200 x 200, 8, 32), Q = 900, L = 1, P = 4),
+              point and box references with samples off the map, bf16 and
+              f32, against msda_plain / msda_backward_plain, timed against
+              bounds that count the value rows the samples touch
+ 39. detection  PerceptionTransformer fp32 card vs CPU at the CPU tests'
+              sizes, with and without can-bus and a prev BEV; then at
+              base_occ's widths in bf16 (R50 + FPN features of 6 x 928 x
+              1600 images, 200 x 200 BEV, 4 encoder layers, 900 queries, 6
+              decoder layers) with can-bus and a prev BEV ->
+              decode_layer_boxes -> nms_free_decode: REQUESTS requests,
+              certificate 0, 8 + 6 msda launches each, a CUDA-event split
+ 40. renders  render_sample (the dda kernel's raw epilogue, one launch) and
+              render_sample_fast (the fan kernel's render epilogue, one
+              launch) at 200 x 200 x 16 along the 14,040-ray fan from 2
+              origins, against their CPU plain versions and render_pred_gt;
+              the expected depth and its gradient card vs CPU; each timed
+              over 20 launches or calls, the expected depth also profiled
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -1148,14 +1175,36 @@ def turbo_split(torch, pred, imgs, e2i):
     return spans["request"], split
 
 
-def msda_bound(torch, v, loc, attn):
-    """(bound_ms, bound_by) of one MSDA call: its inputs read once and its
-    output written once; every sample 2x2 corners, mul + add per channel
-    (an upper bound on the operations: out-of-level samples are skipped)."""
-    N, Q, H, L, P, _ = loc.shape
+def msda_touched(torch, v, shapes, loc):
+    """(bytes, corners) an MSDA call needs of value on this run's locations:
+    the D channels of each distinct (batch, head, row) that some sample's
+    bilinear corner touches inside its level, at most all of value, and the
+    number of in-level corners."""
+    from occnet_tpu_torch.ops.msda import _level_corners
+    N, V, H, D = v.shape
+    dev = loc.device
+    base = (torch.arange(N, device=dev)[:, None, None, None] * H
+            + torch.arange(H, device=dev)[None, None, :, None]) * V
+    keys, corners, start = [], 0, 0
+    for lvl, (h, w) in enumerate(shapes):
+        _, _, cs = _level_corners(loc[:, :, :, lvl].float(), h, w)
+        for valid, row in cs:
+            keys.append((base + start + row)[valid])
+            corners += int(valid.sum())
+        start += h * w
+    rows = torch.unique(torch.cat(keys)).numel()
+    return rows * D * v.element_size(), corners
+
+
+def msda_bound(torch, v, shapes, loc, attn):
+    """(bound_ms, bound_by) of one MSDA call: the value rows its samples
+    touch (`msda_touched`), loc and attn read once, its output written
+    once; a multiply and an add a channel for each in-level corner."""
+    N, Q, H = loc.shape[:3]
     D = v.shape[3]
-    return least_time(nbytes(v, loc, attn) + N * Q * H * D * v.element_size(),
-                      N * Q * H * D * L * P * 4 * 2)
+    touched, corners = msda_touched(torch, v, shapes, loc)
+    return least_time(touched + nbytes(loc, attn)
+                      + N * Q * H * D * v.element_size(), corners * D * 2)
 
 
 def phase_msda_kernels(torch, cfg, results):
@@ -1218,8 +1267,9 @@ def phase_msda_kernels(torch, cfg, results):
             k, p = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc,
                                                           attn),
                             lambda: msda.msda_plain(v, shapes, loc, attn), 5)
-            b_ms, by = msda_bound(torch, v, loc, attn)
-            nb = nbytes(v, loc, attn) + got.numel() * v.element_size()
+            b_ms, by = msda_bound(torch, v, shapes, loc, attn)
+            nb = (msda_touched(torch, v, shapes, loc)[0] + nbytes(loc, attn)
+                  + got.numel() * v.element_size())
             log(f"  msda {name} {dtype}: kernel {k:.4f} ms, plain {p:.4f} "
                 f"ms; compulsory {nb / 1e6:.1f} MB -> "
                 f"{nb / k / 1e9:.3f} TB/s "
@@ -1389,7 +1439,7 @@ def msda_real(torch, pred, imgs, e2i, results):
                                f"request ({name})")
         k, _ = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc, attn),
                         lambda: msda.msda_plain(v, shapes, loc, attn), 5)
-        b_ms, _ = msda_bound(torch, v, loc, attn)
+        b_ms, _ = msda_bound(torch, v, shapes, loc, attn)
         log(f"  msda real {name}: kernel {k:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_ms / k:.1%})")
         ms += k
@@ -2614,7 +2664,7 @@ def report_times(label, t, nb):
 
 
 def msda_bwd_case(torch, label, v, shapes, loc, attn, g, tol, plain=True,
-                  batch_split=False):
+                  batch_split=False, reps=3):
     """One msda_bwd case: held to the plain version, dloc and dattn bitwise
     over two launches (and at B = 2 against two B = 1 calls), then timed in
     turns with the plain version; returns (worst error, times, bound ms)."""
@@ -2627,9 +2677,11 @@ def msda_bwd_case(torch, label, v, shapes, loc, attn, g, tol, plain=True,
         batch_split_held(torch, label, msda.msda_backward_cuda, args, tol,
                          names, (1, 2))
     t = bwd_times(torch, msda.msda_backward_cuda,
-                  msda.msda_backward_plain if plain else None, 3, args)
-    # value, loc, attn, grad read once; dvalue, dloc, dattn written once
-    nb = nbytes(v, loc, attn, g, v, loc, attn)
+                  msda.msda_backward_plain if plain else None, reps, args)
+    # the value rows the samples touch, loc, attn, grad read once; dvalue,
+    # dloc, dattn written once
+    nb = msda_touched(torch, v, shapes, loc)[0] + nbytes(loc, attn, g, v,
+                                                         loc, attn)
     return worst, t, report_times(label, t, nb)
 
 
@@ -4654,6 +4706,618 @@ def phase_dist_test(torch, results, root, tmp, ckpt):
     results["runtime"]["dist_test_s"] = dt
 
 
+# --- phases 36-40: VoVNet, the detection path, the other renders ---
+
+VOVNET_HW = (67, 93)     # odd: every stage's ceil-mode pool hangs off the edge
+MODULE_RTOL = 1e-4       # card vs CPU, fp32 modules: x max|CPU|
+DEPTH_RTOL = 1e-5        # expected depth and its gradient, card vs CPU
+DECODER_Q = 900          # object queries of the detection decoder
+DECODER_REPS = 20        # launches a timing at the decoder's tiny shape
+RENDER_REPS = 20         # launches (calls) a timing of phase 40
+DETECTION_DECODER_LAYERS = 6
+
+
+def vovnet_cfg(spec, base="base_occ"):
+    from occnet_tpu_torch.config import apply_overrides, get_config
+    return apply_overrides(get_config(base), {
+        "model.backbone.type": "vovnet", "model.backbone.vovnet_spec": spec})
+
+
+def phase_vovnet_parity(torch):
+    """Every VoVNet preset, fp32, at an odd input size on the card and on
+    the CPU from the same random weights (the JAX initialisers, every norm
+    and bias randomised): each output within MODULE_RTOL of max|CPU|."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.models.vovnet import VOVNET_SPECS, VoVNet
+    x = torch.randn(2, 3, *VOVNET_HW, generator=torch.Generator()
+                    .manual_seed(36))
+    for spec in VOVNET_SPECS:
+        sd = from_jax_variables(randomize_variables(
+            init_jax_style_variables(vovnet_cfg(spec, "tiny_occ"), seed=1),
+            seed=2))
+        net = VoVNet(spec, (1, 2, 3), -1)
+        net.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()
+                             if k.startswith("backbone.")})
+        with torch.no_grad():
+            want, _ = net(x)
+            got, _ = net.cuda()(x.cuda())
+        errs = []
+        for g, w in zip(got, want):
+            err = (g.cpu() - w).abs().max().item()
+            scale = w.abs().max().item()
+            errs.append(err / scale)
+            if not (torch.isfinite(g).all() and err <= MODULE_RTOL * scale):
+                raise RuntimeError(f"VoVNet {spec}: card {err} from the CPU "
+                                   f"(max {scale})")
+        log(f"  {spec} at {VOVNET_HW}: outputs "
+            f"{[tuple(o.shape[1:]) for o in got]}, card vs CPU max|diff| / "
+            f"max|CPU| {', '.join(f'{e:.2e}' for e in errs)}")
+
+
+def phase_vovnet_serve_train(torch, results):
+    """base_occ with a VoVNet-99-eSE trunk at full width, bf16: REQUESTS
+    served requests (certificate 0, 8 msda launches each, latency, peak),
+    then 1 warm-up + FULL_TRAIN_STEPS timed train steps through the CLI's
+    step (config defaults): finite losses, 8 msda + 8 msda_bwd launches a
+    step, the frozen stem and stage 2 moved by AdamW's decay alone (p (1 -
+    lr wd), as optax decays them), every other leaf moved."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.ops.msda import MSDA, MSDA_BWD
+    from occnet_tpu_torch.serve import Predictor
+    from occnet_tpu_torch.tools.train import make_synthetic_batch, to_device
+    from occnet_tpu_torch.training.train import (create_train_state,
+                                                 make_train_step)
+    cfg = vovnet_cfg("V-99-eSE")
+    m = cfg.model
+    sd = from_jax_variables(init_jax_style_variables(cfg, seed=0))
+    e2i = ring_rig(m, 1)
+    pred = Predictor(cfg, sd, "cuda")
+    n_params = sum(p.numel() for p in pred.model.backbone.parameters())
+    rng = np.random.RandomState(37)
+    reqs = [rng.randint(0, 256, (1, m.num_cams, 900, 1600, 3),
+                        dtype=np.uint8) for _ in range(REQUESTS + 1)]
+    pred(reqs[0], e2i)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MSDA.launches = 0
+    lat = []
+    for imgs in reqs[1:]:
+        t = time.perf_counter()
+        occ, flow, logits = pred(imgs, e2i, with_logits=True)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        if not (torch.isfinite(logits).all() and torch.isfinite(flow).all()):
+            raise RuntimeError("VoVNet base_occ: non-finite logits or flow")
+        if pred.sca_topk_overflow != 0:
+            raise RuntimeError(f"sca_topk_overflow {pred.sca_topk_overflow}")
+    serve_launches = MSDA.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = REQUESTS * 2 * m.encoder.num_layers
+    log(f"  serve base_occ + V-99-eSE ({n_params / 1e6:.2f}M trunk "
+        f"parameters): {REQUESTS} requests, latency ms "
+        f"{[round(x, 3) for x in lat]}, mean {sum(lat) / len(lat):.3f}; peak "
+        f"allocated {peak:.3f} GiB; sca_topk_overflow "
+        f"{pred.sca_topk_overflow}; msda launches {serve_launches} (expected "
+        f"{want}); card {nvidia_smi()}")
+    if serve_launches != want:
+        raise RuntimeError(f"VoVNet serve: msda launches {serve_launches} != "
+                           f"{want}")
+    del pred
+    torch.cuda.empty_cache()
+
+    state = create_train_state(cfg, sd, "cuda")
+    del sd
+    batch = to_device(make_synthetic_batch(cfg, 1, np.random.RandomState(
+        38)), "cuda")
+    step_fn = make_train_step(cfg, seed=0)
+    metrics = step_fn(state, batch)          # warm-up
+    torch.cuda.synchronize()
+    log(f"  warm-up step: loss {float(metrics['loss']):.4f}")
+    wd = cfg.optim.weight_decay
+    group_lr = {id(p): g for g in state.optimizer.param_groups
+                for p in g["params"]}
+    frozen = {n for n, _ in state.model.named_parameters()
+              if n.startswith(("backbone.stem", "backbone.stage2_"))}
+    torch.cuda.reset_peak_memory_stats()
+    MSDA.launches = MSDA_BWD.launches = 0
+    host = []
+    for _ in range(FULL_TRAIN_STEPS):
+        before = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        t = time.perf_counter()
+        metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss) or int(metrics["cert_overflow"]) != 0:
+            raise RuntimeError(f"VoVNet train step: loss {loss}, "
+                               f"cert_overflow {metrics['cert_overflow']}")
+        decayed = still = 0
+        for n, p in state.model.named_parameters():
+            lr = group_lr[id(p)]["lr"]
+            if n in frozen:
+                want_p = before[n].mul(1 - lr * wd)
+                if not torch.allclose(p.detach(), want_p, rtol=1e-6, atol=0):
+                    raise RuntimeError(f"frozen {n} moved otherwise than "
+                                       f"AdamW's decay")
+                decayed += int(torch.equal(p.detach(), want_p))
+            elif torch.equal(p.detach(), before[n]):
+                still += 1
+        log(f"  step {state.step - 1}: loss {loss:.4f}, host "
+            f"{host[-1]:.3f} ms; {len(frozen)} frozen leaves moved by the "
+            f"decay alone ({decayed} bitwise p (1 - lr wd)); live leaves "
+            f"unchanged: {still}")
+        if still:
+            raise RuntimeError(f"{still} trainable leaves did not move")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = 2 * m.encoder.num_layers
+    launches = {"msda": MSDA.launches, "msda_bwd": MSDA_BWD.launches}
+    log(f"  train base_occ + V-99-eSE: {FULL_TRAIN_STEPS} steps, host ms "
+        f"{[round(x, 3) for x in host]}, mean "
+        f"{sum(host) / len(host):.3f}; peak allocated {peak:.3f} GiB; "
+        f"launches {launches} (expected {per_step} each a step); card "
+        f"{nvidia_smi()}")
+    if launches != {k: per_step * FULL_TRAIN_STEPS for k in launches}:
+        raise RuntimeError(f"VoVNet train launches {launches}")
+    results["vovnet"] = {"serve_msda": serve_launches,
+                         "train_msda_bwd": launches["msda_bwd"]}
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def decoder_locations(torch, gen, ref_kind, Q, H, P, hw):
+    """Sampling locations of the detection decoder's cross-attention at
+    (1, Q, H, 1, P, 2): point references in [-0.1, 1.1]^2 plus offsets of
+    a few cells (/ (w, h)), or box references (cx, cy in [-0.1, 1.1], w, h
+    in [0, 0.1]) plus offsets / P * (w, h) * 0.5; a share of the samples
+    lies off the map."""
+    dev = torch.device("cuda")
+    h, w = hw
+    off = torch.randn(1, Q, H, 1, P, 2, generator=gen, device=dev) * 4.0
+    ref = torch.rand(1, Q, 2, generator=gen, device=dev) * 1.2 - 0.1
+    if ref_kind == "point":
+        norm = torch.tensor([w, h], dtype=torch.float32, device=dev)
+        return (ref[:, :, None, None, None, :] + off / norm).contiguous()
+    wh = torch.rand(1, Q, 2, generator=gen, device=dev) * 0.1
+    return (ref[:, :, None, None, None, :] + off / torch.tensor(
+        float(P), device=dev) * wh[:, :, None, None, None, :] * 0.5
+            ).contiguous()
+
+
+def phase_detection_kernels(torch, results):
+    """msda.cu and msda_bwd.cu at the detection decoder's shape: value (1,
+    200 x 200, 8, 32), Q = 900, one level, 4 points, point and box
+    references with samples off the map, bf16 and f32: the forward against
+    msda_plain (phase 9's tolerances), the backward against
+    msda_backward_plain (BWD_*_TOL x max|plain|, dloc / dattn bitwise over
+    two launches), each timed in turns with the plain version against its
+    bound, which reads only the value rows the samples touch."""
+    from occnet_tpu_torch.ops import msda
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(38)
+    H, D, P, shapes = 8, 32, 4, [(200, 200)]
+    V = 200 * 200
+    v32 = torch.randn(1, V, H, D, generator=gen, device="cuda")
+    attn = torch.softmax(torch.randn(1, DECODER_Q, H, P, generator=gen,
+                                     device="cuda"), -1
+                         ).reshape(1, DECODER_Q, H, 1, P).contiguous()
+    g32 = torch.randn(1, DECODER_Q, H * D, generator=gen, device="cuda")
+    fwd = {"worst": 0.0}
+    bwd = {"worst": 0.0}
+    for kind in ("point", "box"):
+        loc = decoder_locations(torch, gen, kind, DECODER_Q, H, P, (200, 200))
+        x = loc[..., 0] * 200 - 0.5
+        y = loc[..., 1] * 200 - 0.5
+        off_map = ((x <= -1) | (x >= 200) | (y <= -1) | (y >= 200)
+                   ).float().mean().item()
+        for dtype in (torch.bfloat16, torch.float32):
+            v, g = v32.to(dtype), g32.to(dtype)
+            got = msda.msda_cuda(v, shapes, loc, attn)
+            want = msda.msda_plain(v, shapes, loc, attn)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(got, want)
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            bound = (MSDA_BF16_TOL + MSDA_BF16_TOL * want.abs()
+                     if dtype == torch.bfloat16
+                     else MSDA_F32_ATOL + MSDA_F32_RTOL * want.abs())
+            err = diff.max().item()
+            log(f"  msda decoder {kind} references {dtype}: {off_map:.1%} of "
+                f"samples off the map; max|kernel-plain| {err:.3e}, bitwise "
+                f"{bitwise}")
+            if not (bool((diff <= bound).all())
+                    and bool(torch.isfinite(got).all())):
+                raise RuntimeError(f"msda kernel disagrees with plain at the "
+                                   f"decoder shape ({kind}, {dtype})")
+            fwd["worst"] = max(fwd["worst"], err)
+            k, p = in_turns(torch, lambda: msda.msda_cuda(v, shapes, loc,
+                                                          attn),
+                            lambda: msda.msda_plain(v, shapes, loc, attn),
+                            DECODER_REPS)
+            b_ms, by = msda_bound(torch, v, shapes, loc, attn)
+            touched = msda_touched(torch, v, shapes, loc)[0]
+            log(f"  msda decoder {kind} {dtype}: kernel {k:.4f} ms, plain "
+                f"{p:.4f} ms, bound {b_ms:.4f} ms ({by}, {b_ms / k:.1%}; "
+                f"value rows touched {touched / 1e6:.2f} MB of "
+                f"{nbytes(v) / 1e6:.2f} MB)")
+            tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_F32_TOL
+            worst, t, bb_ms = msda_bwd_case(
+                torch, f"msda_bwd decoder {kind} value {tuple(v.shape)} "
+                f"{dtype}, Q={DECODER_Q}, L=1, P={P}", v, shapes, loc, attn,
+                g, tol, reps=DECODER_REPS)
+            bwd["worst"] = max(bwd["worst"], worst)
+            if dtype == torch.bfloat16 and kind == "point":
+                fwd.update(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=by)
+                bwd.update(ms=t["kernel"], plain_ms=t["plain"],
+                           bound_ms=bb_ms)
+    results["msda"]["decoder_shape"] = {
+        "shape": "value (1, 40000, 8, 32) bf16, Q 900, L 1, P 4, point "
+                 "references", "max_abs_err": fwd.pop("worst"), **fwd}
+    results["msda_bwd"]["decoder_shape"] = {
+        "shape": "value (1, 40000, 8, 32) bf16, Q 900, L 1, P 4, point "
+                 "references", "max_abs_err": bwd.pop("worst"), **bwd,
+        "bound_by": "bytes"}
+
+
+def perception_model(torch, m, num_query, layers, dtype, seed):
+    """A PerceptionTransformer with the JAX initialisers' random weights
+    (every zero kernel and identity norm randomised), eval mode."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_perception_variables,
+                                          randomize_variables)
+    from occnet_tpu_torch.models.perception import PerceptionTransformer
+    pt = PerceptionTransformer(m, num_query=num_query, decoder_layers=layers,
+                               dtype=dtype)
+    pt.load_state_dict(from_jax_variables(randomize_variables(
+        init_jax_style_perception_variables(m, num_query=num_query,
+                                            decoder_layers=layers,
+                                            seed=seed), seed=seed + 1)))
+    return pt.eval()
+
+
+def can_bus_and_prev(torch, m, batch, seed):
+    """A can-bus signal (the ego 1.5 m ahead, 0.3 rad of yaw, the prev BEV
+    turned by 10 degrees) and a random prev BEV, float32 on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    cb = torch.zeros(batch, 18)
+    cb[:, 0], cb[:, 1], cb[:, -2], cb[:, -1] = 1.5, -0.5, 0.3, 10.0
+    return cb, torch.randn(batch, m.bev_h * m.bev_w, m.embed_dims,
+                           generator=gen)
+
+
+def phase_detection(torch, results):
+    """The detection path.  Small, fp32, card vs CPU: PerceptionTransformer
+    at tests/test_torch_detection.py's sizes with and without can-bus /
+    prev BEV, every output within MODULE_RTOL of max|CPU|, certificates 0.
+    Full width, bf16: base_occ's R50 + FPN features of 6 x 928 x 1600
+    uint8 images -> PerceptionTransformer at base_occ's widths (200 x 200
+    BEV, 256 channels, 4 encoder layers, 900 queries, 6 decoder layers)
+    with can-bus and a prev BEV (the first request's BEV) ->
+    decode_layer_boxes of the last layer -> nms_free_decode (300 boxes) on
+    a stand-in classifier: REQUESTS timed requests, the certificate raised
+    on when nonzero, 8 + 6 msda launches each, a CUDA-event split."""
+    from occnet_tpu_torch.config import apply_overrides, tiny_occ
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.data.pipeline import make_device_normalizer
+    from occnet_tpu_torch.models.bbox import (decode_layer_boxes,
+                                              nms_free_decode)
+    from occnet_tpu_torch.models.detector import OccNet
+    from occnet_tpu_torch.ops.msda import MSDA
+    small = apply_overrides(tiny_occ(), {
+        "model.img_h": "32", "model.img_w": "48", "model.bev_h": "8",
+        "model.bev_w": "8", "model.pillar_h": "2", "model.embed_dims": "32",
+        "model.num_cams": "2", "model.num_feature_levels": "2",
+        "model.compute_dtype": "float32", "model.encoder.num_layers": "1",
+        "model.encoder.ffn_dim": "64",
+        "model.encoder.num_points_in_pillar": "2",
+        "model.encoder.sca.num_levels": "2"}).model
+    pt = perception_model(torch, small, 12, 2, torch.float32, 40)
+    gen = torch.Generator().manual_seed(41)
+    feats = [torch.randn(1, 2, 8, 12, 32, generator=gen),
+             torch.randn(1, 2, 4, 6, 32, generator=gen)]
+    e2i = torch.from_numpy(ring_rig(small, 1, spacing=np.pi) @ np.array(
+        [[np.cos(0.3), -np.sin(0.3), 0, 0], [np.sin(0.3), np.cos(0.3), 0, 0],
+         [0, 0, 1, 0], [0, 0, 0, 1]], np.float32))
+    cb, prev = can_bus_and_prev(torch, small, 1, 42)
+    for kw in ({}, {"can_bus": cb, "prev_bev": prev}):
+        with torch.no_grad():
+            want = pt(feats, e2i, **kw)
+            got = pt.cuda()([f.cuda() for f in feats], e2i.cuda(),
+                            **{k: v.cuda() for k, v in kw.items()})
+            pt.cpu()
+        errs = []
+        for g, w in zip(got[:4], want[:4]):
+            err = (g.cpu() - w).abs().max().item()
+            errs.append(err / w.abs().max().item())
+            if err > MODULE_RTOL * w.abs().max().item():
+                raise RuntimeError(f"PerceptionTransformer card vs CPU: "
+                                   f"{err}")
+        if int(got[4]) or int(want[4]):
+            raise RuntimeError("small PerceptionTransformer certificate")
+        what = "with can-bus + prev BEV" if kw else "single frame"
+        log(f"  small PerceptionTransformer fp32 {what}: card vs CPU "
+            f"max|diff| / max|CPU| (bev, states, init ref, refs) "
+            f"{', '.join(f'{e:.2e}' for e in errs)}")
+    del pt
+
+    cfg = exact_cfg("base_occ")
+    m = cfg.model
+    dev = torch.device("cuda")
+    occ = OccNet(m)
+    occ.load_state_dict(from_jax_variables(init_jax_style_variables(
+        cfg, seed=0)))
+    trunk = occ.to(dev).eval()
+    normalize = make_device_normalizer(cfg.data)
+    pt = perception_model(torch, m, DECODER_Q, DETECTION_DECODER_LAYERS,
+                          torch.bfloat16, 43).to(dev)
+    n_cls = 10
+    w_cls = (torch.randn(m.embed_dims, n_cls, generator=torch.Generator()
+                         .manual_seed(44)) * m.embed_dims ** -0.5).to(dev)
+    e2i = torch.from_numpy(ring_rig(m, 1)).to(dev)
+    cb, _ = can_bus_and_prev(torch, m, 1, 45)
+    cb = cb.to(dev)
+    post_center = [-61.2, -61.2, -10.0, 61.2, 61.2, 10.0]
+    marks = {}
+
+    def mark(label):
+        marks[label] = torch.cuda.Event(enable_timing=True)
+        marks[label].record()
+
+    hooks = [pt.decoder.register_forward_pre_hook(
+                 lambda *_: mark("encoder")),
+             pt.decoder.register_forward_hook(lambda *_: mark("decoder"))]
+
+    @torch.inference_mode()
+    def request(imgs, prev=None):
+        mark("start")
+        feats, _ = trunk.extract_img_feat(normalize(
+            torch.from_numpy(imgs).to(dev, non_blocking=True)))
+        mark("trunk+fpn")
+        bev, states, ref, refs, overflow = pt(feats, e2i, cb, prev)
+        if int(overflow):
+            raise RuntimeError(f"sca_topk_overflow {int(overflow)}: the "
+                               f"detection request is not the exact model's")
+        lvl = DETECTION_DECODER_LAYERS - 1
+        codes = pt.reg_branches[lvl](states[lvl])
+        boxes = decode_layer_boxes(codes, lvl, ref, refs, m.pc_range)
+        det = nms_free_decode(states[lvl, 0].float() @ w_cls, boxes[0],
+                              post_center, max_num=300)
+        mark("decode")
+        if tuple(states.shape) != (DETECTION_DECODER_LAYERS, 1, DECODER_Q,
+                                   m.embed_dims):
+            raise RuntimeError(f"inter_states {tuple(states.shape)}")
+        return bev, refs, det
+
+    rng = np.random.RandomState(46)
+    reqs = [rng.randint(0, 256, (1, m.num_cams, 900, 1600, 3),
+                        dtype=np.uint8) for _ in range(REQUESTS + 1)]
+    prev, _, _ = request(reqs[0])            # warm-up; its BEV is the history
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MSDA.launches = 0
+    lat, splits = [], []
+    for imgs in reqs[1:]:
+        t = time.perf_counter()
+        bev, refs, det = request(imgs, prev)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        names = list(marks)
+        splits.append({b: marks[a].elapsed_time(marks[b])
+                       for a, b in zip(names, names[1:])})
+        if not (torch.isfinite(bev.float()).all()
+                and torch.isfinite(det["bboxes"]).all()
+                and bool(((refs >= 0) & (refs <= 1)).all())):
+            raise RuntimeError("detection request: non-finite output or a "
+                               "reference off [0, 1]")
+        if tuple(det["bboxes"].shape) != (300, 9) \
+                or int(det["labels"].max()) >= n_cls:
+            raise RuntimeError(f"detection decode: {det['bboxes'].shape}")
+    launches = MSDA.launches
+    want = REQUESTS * (2 * m.encoder.num_layers + DETECTION_DECODER_LAYERS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean = {k: sum(s[k] for s in splits) / len(splits) for k in splits[0]}
+    log(f"  detection, base_occ widths, bf16: {REQUESTS} requests, host ms "
+        f"{[round(x, 3) for x in lat]}, mean {sum(lat) / len(lat):.3f}; "
+        f"CUDA-event split (mean ms) "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in mean.items())}; peak "
+        f"allocated {peak:.3f} GiB; {int(det['valid'].sum())} of 300 boxes "
+        f"in the centre range; msda launches {launches} (expected {want}); "
+        f"card {nvidia_smi()}")
+    if launches != want:
+        raise RuntimeError(f"detection msda launches {launches} != {want}")
+    results["msda"]["detection_launches"] = launches
+    for h in hooks:
+        h.remove()
+    del trunk, pt, occ
+    torch.cuda.empty_cache()
+
+
+def render_scene():
+    """tests/test_torch_render_extra.py's 200 x 200 x 16 grid (1 %
+    occupied), its prediction (0.2 % of the voxels changed), random flow,
+    the lidar fan and two ego origins."""
+    from occnet_tpu_torch.evaluation.ray_metrics import generate_lidar_rays
+    rng = np.random.RandomState(1)
+    sem = np.full((200, 200, 16), 16, np.int32)
+    blob = rng.rand(200, 200, 16) < 0.01
+    sem[blob] = rng.randint(0, 16, int(blob.sum()))
+    pred = sem.copy()
+    flip = rng.rand(200, 200, 16) < 0.002
+    pred[flip] = rng.randint(0, 17, int(flip.sum()))
+    flow = rng.randn(200, 200, 16, 2).astype(np.float32)
+    origins = np.array([[0.5, 0.3, 1.8], [5.0, -3.0, 1.9]], np.float32)
+    return sem, pred, flow, generate_lidar_rays(), origins
+
+
+def phase_renders(torch, results):
+    """render_sample (the dda kernel's raw epilogue, one launch for both
+    origins' 14,040 rays) and render_sample_fast (the fan kernel's render
+    epilogue, one launch for both origins) on the card against the same
+    functions on the CPU (their plain versions: labels and flow equal, dist
+    within DIST_RTOL), the fast render also against render_pred_gt on the
+    card; each kernel timed over RENDER_REPS launches in turns with its
+    plain version on the card, against its bound.  render_expected_depth
+    at 200 x 200 x 16 (one origin, the fan's 14,040 rays to random ranges)
+    and the gradient of render_depth_loss, card vs CPU within DEPTH_RTOL of
+    max|CPU|, each arm timed over RENDER_REPS calls after a warm-up, and
+    one call of each under torch.profiler: its kernel launches and the
+    device's busy time against the call's span."""
+    from occnet_tpu_torch.evaluation import ray_metrics as rm
+    from occnet_tpu_torch.ops import ray_march, ray_march_vec, render_diff
+    from occnet_tpu_torch.tools.profile_turbo import device_profile
+    sem, pred, flow, rays, origins = render_scene()
+    valid = np.array([True, True])
+    T, R = origins.shape[0], rays.shape[0]
+    dev = torch.device("cuda")
+    grids = {k: (torch.from_numpy(a), torch.from_numpy(a).to(dev))
+             for k, a in (("sem", sem), ("pred", pred), ("flow", flow))}
+
+    def held(label, got, want, atol, rtol):
+        """labels, valid and flow equal; |dist diff| <= atol + rtol |want|;
+        returns max|dist diff|."""
+        for k in ("label", "valid", "flow"):
+            if not torch.equal(got[k].cpu(), want[k].cpu()):
+                raise RuntimeError(f"{label}: {k} differs")
+        w = want["dist"].cpu()
+        d = (got["dist"].cpu() - w).abs()
+        if not bool((d <= atol + rtol * w.abs()).all()):
+            raise RuntimeError(f"{label}: dist {d.max().item()}")
+        return d.max().item()
+
+    ray_march.DDA.launches = 0
+    got = rm.render_sample(grids["sem"][1], grids["flow"][1], rays, origins,
+                           valid)
+    torch.cuda.synchronize()
+    dda_launches = ray_march.DDA.launches
+    t = time.perf_counter()
+    want = rm.render_sample(grids["sem"][0], grids["flow"][0], rays, origins,
+                            valid)
+    cpu_s = time.perf_counter() - t
+    err = held("render_sample", got, want, 0.0, DIST_RTOL)
+    o = torch.from_numpy(rm._origins_vox(origins, 0.4, rm._PC_RANGE)).to(dev)
+    d = torch.from_numpy(rays).to(dev)
+    occ = grids["sem"][1] != rm.FREE_ID
+    o_r = o[:, None].expand(T, R, 3).reshape(T * R, 3).contiguous()
+    d_r = d[None].expand(T, R, 3).reshape(T * R, 3).contiguous()
+    k_ms, p_ms = in_turns(
+        torch, lambda: ray_march.dda_raymarch_cuda(occ, o_r, d_r, 448),
+        lambda: ray_march.dda_raymarch_plain(occ, o_r, d_r, 448),
+        RENDER_REPS)
+    # steps this run's rays take: the voxels between start and end, + 1
+    _, coord, _ = ray_march.dda_raymarch_cuda(occ, o_r, d_r, 448)
+    n_steps = int(((coord - torch.floor(o_r).int()).abs().sum(1) + 1).sum())
+    b_ms, by = least_time(nbytes(o_r, d_r) + occ.numel()
+                          + T * R * (4 + 12 + 1),
+                          n_steps * DDA_OPS_PER_STEP)
+    log(f"  render_sample {T} x {R} rays, 448 steps: card vs CPU labels and "
+        f"flow equal, max|dist diff| {err:.3e} m; {dda_launches} dda kernel "
+        f"launch; raw kernel {k_ms:.4f} ms, plain on the card {p_ms:.4f} ms "
+        f"(CPU {cpu_s * 1e3:.1f} ms), bound {b_ms:.4f} ms ({by}, "
+        f"{n_steps / (T * R):.1f} steps a ray)")
+    if dda_launches != 1:
+        raise RuntimeError(f"render_sample: {dda_launches} dda launches")
+    results["ray_march_dda"]["render_sample"] = {
+        "launches": dda_launches, "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": by}
+
+    ray_march_vec.FAN_RENDER.launches = 0
+    fast = rm.render_sample_fast(grids["pred"][1], grids["flow"][1], rays,
+                                 origins, valid)
+    torch.cuda.synchronize()
+    fan_launches = ray_march_vec.FAN_RENDER.launches
+    want = rm.render_sample_fast(grids["pred"][0], grids["flow"][0], rays,
+                                 origins, valid)
+    err = held("render_sample_fast", fast, want, 0.0, DIST_RTOL)
+    p, _ = rm.render_pred_gt(grids["pred"][1], grids["flow"][1],
+                             grids["sem"][1], grids["flow"][1], rays,
+                             origins, valid)
+    err_vec = held("render_sample_fast vs render_pred_gt", fast, p, 0.0,
+                   DIST_RTOL)
+    az, dz, scale = rm.FAN_TABLES(rays, 360, dev)
+    sem_p, flow_p = grids["pred"][1], grids["flow"][1]
+    rfa = ([sem_p], [flow_p], o, az, dz, scale, 0.4, rm.FREE_ID)
+    k_ms, p_ms = in_turns(
+        torch, lambda: ray_march_vec.fan_render_cuda(*rfa),
+        lambda: ray_march_vec.fan_render_plain(*rfa), RENDER_REPS)
+    # crossings this run's rays take (phase 16's count); origins, fan
+    # tables and packed columns in, each ray's end voxel's label and flow
+    # read, dist / label / flow out
+    _, coord, _ = ray_march_vec.dda_raymarch_fan_vec_cuda(
+        (sem_p != rm.FREE_ID)[None], o, az, dz, scale)
+    v0 = torch.floor(o[:, :2]).int()[None, :, None, None]
+    crossings = int(((coord[..., :2] - v0).abs().sum(-1) + 1).sum())
+    b_ms, by = least_time(
+        nbytes(o, az, dz, scale) + sem_p.shape[0] * sem_p.shape[1] * 4
+        + T * R * (4 + 4 + 8 + sem_p.element_size()
+                   + 2 * flow_p.element_size()),
+        crossings * FAN_OPS_PER_CROSSING)
+    log(f"  render_sample_fast {T} x {R} rays: card vs CPU labels and flow "
+        f"equal, max|dist diff| {err:.3e} m; against render_pred_gt on the "
+        f"card max|dist diff| {err_vec:.3e} m; {fan_launches} fan kernel "
+        f"launch; kernel {k_ms:.4f} ms, plain on the card {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({by}, {crossings / (T * R):.1f} crossings a "
+        f"ray)")
+    if fan_launches != 1:
+        raise RuntimeError(f"render_sample_fast: {fan_launches} launches")
+    results["ray_march_fan"]["render_sample_fast"] = {
+        "launches": fan_launches, "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": by}
+
+    rng = np.random.RandomState(47)
+    sigma = (rng.rand(1, 200, 200, 16) * 0.3).astype(np.float32)
+    origin = np.array([[100.3, 99.6, 5.2]], np.float32)
+    pts = (origin + rays * rng.uniform(5, 60, (R, 1))).astype(np.float32)
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = torch.from_numpy(sigma).to(device).requires_grad_(True)
+        args = (torch.from_numpy(origin).to(device),
+                torch.from_numpy(pts).to(device))
+        pd, gd = render_diff.render_expected_depth(s, *args)
+        render_diff.render_depth_loss(s, *args).backward()
+        out[name] = (pd.detach().cpu(), gd.cpu(), s.grad.cpu())
+    errs = []
+    for a, b, label in zip(out["card"], out["cpu"], ("pred", "gt", "grad")):
+        e = (a - b).abs().max().item()
+        errs.append(f"{label} {e:.3e} of max {b.abs().max().item():.3e}")
+        if not (torch.isfinite(a).all() and e <= DEPTH_RTOL
+                * b.abs().max().item()):
+            raise RuntimeError(f"render_expected_depth card vs CPU: {label}")
+    s = torch.from_numpy(sigma).to(dev).requires_grad_(True)
+    args = (torch.from_numpy(origin).to(dev), torch.from_numpy(pts).to(dev))
+
+    def fwd_bwd():
+        s.grad = None
+        render_diff.render_depth_loss(s, *args).backward()
+
+    def fwd():
+        with torch.no_grad():
+            render_diff.render_expected_depth(s, *args)
+
+    t = turns(torch, {"forward": fwd, "forward + backward": fwd_bwd},
+              RENDER_REPS)
+    prof = {}
+    for label, fn in (("forward", fwd), ("forward + backward", fwd_bwd)):
+        t0 = time.perf_counter()
+        dp = prof[label] = device_profile(fn)
+        log(f"    {label} under torch.profiler: "
+            f"{sum(dp['n_by_name'].values())} kernel launches, device busy "
+            f"{dp['busy_ms']:.3f} ms of a {dp['span_ms']:.3f} ms span "
+            f"(host clock {(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    log(f"  render_expected_depth + gradient, 200 x 200 x 16, {R} rays: card "
+        f"vs CPU max|diff| {', '.join(errs)}; {(out['card'][0] >= 0).sum()} "
+        f"rays enter; card forward (no grad) {t['forward']:.3f} ms, "
+        f"forward + backward {t['forward + backward']:.3f} ms")
+    results["render_diff"] = {
+        "ms": t["forward + backward"], "forward_ms": t["forward"],
+        "launches": {k: sum(dp["n_by_name"].values())
+                     for k, dp in prof.items()},
+        "busy_ms": {k: dp["busy_ms"] for k, dp in prof.items()}}
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4813,6 +5477,25 @@ def main():
             log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    for n, label, run in (
+            (36, "VoVNet parity: the 7 presets, fp32, card vs CPU",
+             lambda: phase_vovnet_parity(torch)),
+            (37, "VoVNet: base_occ with V-99-eSE served and trained at full "
+                 "width, bf16", lambda: phase_vovnet_serve_train(torch,
+                                                                 results)),
+            (38, "detection kernels: msda / msda_bwd at the decoder's shape",
+             lambda: phase_detection_kernels(torch, results)),
+            (39, "detection: PerceptionTransformer card vs CPU; the "
+                 "full-width detection path",
+             lambda: phase_detection(torch, results)),
+            (40, "renders: render_sample, render_sample_fast, "
+                 "render_expected_depth", lambda: phase_renders(torch,
+                                                                results))):
+        log(f"[{n} {label}]")
+        t = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -4899,6 +5582,12 @@ def main():
             for k in kernels:
                 if k["name"] == alias.get(kname, kname) and n:
                     k.setdefault(key, {})[phase] = n
+    # launches of the VoVNet, detection and render paths (phases 37, 39,
+    # 40), each counted from 0 over its own run
+    by_name = {k["name"]: k for k in kernels}
+    by_name["msda"]["vovnet_serve_launches"] = results["vovnet"]["serve_msda"]
+    by_name["msda_bwd"]["vovnet_train_launches"] = \
+        results["vovnet"]["train_msda_bwd"]
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     for k in kernels:

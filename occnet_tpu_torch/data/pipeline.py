@@ -1,7 +1,10 @@
 """Image processing (port of `occnet_tpu.data.pipeline`): the occupancy
 ground-truth reader (`load_occ_gt`), the on-device normaliser of the serving
 path, the train-time augmenter (photometric distortion -> normalise -> pad)
-of uint8 uploads, and the host-side normalise and pad of float datasets.
+of uint8 uploads, and the host-side numpy transforms of float datasets:
+normalise, pad, the photometric distortion drawn from a `RandomState`
+(`photometric_distortion`) and the multi-view random rescale
+(`random_scale_image`).
 
 The photometric distortion is split into a draw from a `torch.Generator`
 (`photometric_draws`) and an apply from explicit draws
@@ -12,7 +15,7 @@ package's on the same draws.  Every draw stays on the device.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +37,103 @@ def load_occ_gt(occ_path: Optional[str],
     sem = np.zeros(occ_size, dtype=np.uint8)
     flow = np.zeros(occ_size + (2,), dtype=np.float32)
     return sem, flow
+
+
+def _rgb_to_hsv_np(img: np.ndarray) -> np.ndarray:
+    """[0, 255] RGB -> HSV (h in degrees, s and v in [0, 1]), numpy."""
+    rgb = img / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.max(-1)
+    minc = rgb.min(-1)
+    v = maxc
+    delta = maxc - minc
+    s = np.where(maxc > 0, delta / np.maximum(maxc, 1e-12), 0.0)
+    dz = np.maximum(delta, 1e-12)
+    h = np.where(maxc == r, (g - b) / dz % 6.0,
+                 np.where(maxc == g, (b - r) / dz + 2.0, (r - g) / dz + 4.0))
+    h = np.where(delta > 0, h * 60.0, 0.0)
+    return np.stack([h, s, v], axis=-1)
+
+
+def _hsv_to_rgb_np(hsv: np.ndarray) -> np.ndarray:
+    h, s, v = hsv[..., 0] / 60.0, hsv[..., 1], hsv[..., 2]
+    i = np.floor(h) % 6
+    f = h - np.floor(h)
+    p = v * (1 - s)
+    q = v * (1 - s * f)
+    t = v * (1 - s * (1 - f))
+    cond = [i == 0, i == 1, i == 2, i == 3, i == 4]
+    r = np.select(cond, [v, q, p, p, t], v)
+    g = np.select(cond, [t, v, v, q, p], p)
+    b = np.select(cond, [p, p, t, v, v], q)
+    return np.stack([r, g, b], axis=-1) * 255.0
+
+
+def photometric_distortion(
+    imgs: np.ndarray,
+    rng: np.random.RandomState,
+    brightness_delta: float = 32.0,
+    contrast_range: Tuple[float, float] = (0.5, 1.5),
+    saturation_range: Tuple[float, float] = (0.5, 1.5),
+    hue_delta: float = 18.0,
+) -> np.ndarray:
+    """Host photometric distortion of (N, H, W, 3) float32 RGB in [0, 255]
+    with the JAX package's draws from ``rng`` image by image: brightness,
+    contrast before or after the HSV round trip, saturation, hue, channel
+    swap, each on with probability 0.5."""
+    out = []
+    for img in imgs:
+        img = img.astype(np.float32)
+        if rng.randint(2):
+            img = img + rng.uniform(-brightness_delta, brightness_delta)
+        mode = rng.randint(2)
+        if mode == 1 and rng.randint(2):
+            img = img * rng.uniform(*contrast_range)
+        hsv = _rgb_to_hsv_np(img)
+        if rng.randint(2):
+            hsv[..., 1] *= rng.uniform(*saturation_range)
+        if rng.randint(2):
+            h = hsv[..., 0] + rng.uniform(-hue_delta, hue_delta)
+            h = np.where(h > 360, h - 360, h)
+            h = np.where(h < 0, h + 360, h)
+            hsv[..., 0] = h
+        img = _hsv_to_rgb_np(hsv)
+        if mode == 0 and rng.randint(2):
+            img = img * rng.uniform(*contrast_range)
+        if rng.randint(2):
+            img = img[..., rng.permutation(3)]
+        out.append(img.astype(np.float32))
+    return np.stack(out)
+
+
+def random_scale_image(imgs: np.ndarray, lidar2img: np.ndarray,
+                       rng: np.random.RandomState,
+                       scales: Sequence[float] = (0.9, 1.0, 1.1)):
+    """One scale drawn from ``scales`` for the sample, every view (N, H, W,
+    3) resized by it (bilinear, pixel centres, edge-clamped) and the first
+    two rows of each projection (N, 4, 4) scaled to match.  Returns
+    (images, lidar2img)."""
+    s = scales[rng.randint(len(scales))]
+    if s == 1.0:
+        return imgs, lidar2img
+    n, h, w, c = imgs.shape
+    nh, nw = int(round(h * s)), int(round(w * s))
+    ys = (np.arange(nh) + 0.5) / s - 0.5
+    xs = (np.arange(nw) + 0.5) / s - 0.5
+    y0 = np.clip(np.floor(ys).astype(int), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    ty = (ys - y0).clip(0, 1)[None, :, None, None]
+    tx = (xs - x0).clip(0, 1)[None, None, :, None]
+    out = (imgs[:, y0][:, :, x0] * (1 - ty) * (1 - tx)
+           + imgs[:, y0][:, :, x1] * (1 - ty) * tx
+           + imgs[:, y1][:, :, x0] * ty * (1 - tx)
+           + imgs[:, y1][:, :, x1] * ty * tx)
+    scale_mat = np.eye(4, dtype=lidar2img.dtype)
+    scale_mat[0, 0] = scale_mat[1, 1] = s
+    return out.astype(imgs.dtype), np.einsum("ij,njk->nik", scale_mat,
+                                             lidar2img)
 
 
 def _mean_std(cfg: DataConfig):

@@ -44,3 +44,10 @@ def transform_matrix(translation, rotation_quat, inverse: bool = False
         tm[:3, 3] = t
     return tm
 
+
+def quaternion_yaw(q) -> float:
+    """Yaw of a quaternion: the rotation of the x axis projected on the xy
+    plane (the nuscenes-devkit definition)."""
+    R = quat_to_rot(q)
+    v = R @ np.array([1.0, 0.0, 0.0])
+    return float(np.arctan2(v[1], v[0]))

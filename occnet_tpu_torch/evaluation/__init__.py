@@ -8,5 +8,7 @@ from occnet_tpu_torch.evaluation.ray_metrics import (  # noqa: F401
     generate_lidar_rays,
     occ_score_from_metrics,
     render_pred_gt,
+    render_sample,
+    render_sample_fast,
     render_sample_vec,
 )

@@ -9,6 +9,14 @@
   class and flow (`ops/ray_march_vec.fan_render`: on the card one kernel
   launch for the prediction and the ground truth together; the fan
   parameters are built once and kept on the device).
+- `render_sample`: the general per-ray render of any rays (the DDA of
+  `ops/ray_march.dda_raymarch`, ``max_steps`` = 448; on the card one launch
+  of its kernel's raw epilogue for all origins' rays), with the render
+  dict's layout (T, R), R pitch-major.  `render_sample_fast`, the JAX
+  package's name for the fan render, is `render_sample_vec` on every
+  device: the loop-free fan marcher.  The JAX package's version marches by
+  the fan loop (`ops/ray_march_fast.dda_raymarch_fan`), equal to it in
+  labels and voxels and within 2e-3 m in distance.
 - `count_sample` + `RayMetricAccumulator`: the TP / GT / prediction counts
   and flow-error sums of the reference's `calc_metrics`, per frame on the
   device (one-hot sums, flow errors summed in float64), accumulated on the
@@ -17,8 +25,10 @@
 
 The marcher works in voxel units, so the metric grid must have CUBIC voxels
 of edge ``voxel_size``.  Origins are converted to voxel units on the host in
-float32 (a CUDA tensor divided by a Python scalar would be multiplied by the
-reciprocal, and rays on voxel boundaries would then change voxel).
+float32, as XLA compiles the JAX package's jitted ``(origin - offset) /
+voxel_size``: a multiplication by fl32(1 / fl32(voxel_size)) (`_origins_vox`;
+on the device the CPU and the card would round a division by a Python
+scalar differently).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from occnet_tpu_torch.config import FLOW_CLASS_NAMES, OCC_CLASS_NAMES
+from occnet_tpu_torch.ops.ray_march import dda_raymarch
 from occnet_tpu_torch.ops.ray_march_vec import Rendered, fan_render
 
 _PC_RANGE = (-40.0, -40.0, -1.0, 40.0, 40.0, 5.4)
@@ -115,6 +126,14 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _origins_vox(origins, voxel_size: float, pc_range) -> np.ndarray:
+    """(T, 3) float32 origins in voxel units: (o - offset) *
+    fl32(1 / fl32(voxel_size)), the jitted JAX renders' arithmetic."""
+    o = np.asarray(origins, np.float32)
+    inv = np.float32(1.0) / np.float32(voxel_size)
+    return (o - np.asarray(pc_range[:3], np.float32)) * inv
+
+
 def _render_grids(sems: Sequence[torch.Tensor], flows: Sequence[torch.Tensor],
                   rays, origins, origin_valid, num_az: int,
                   voxel_size: float, pc_range: Tuple[float, ...]
@@ -124,9 +143,7 @@ def _render_grids(sems: Sequence[torch.Tensor], flows: Sequence[torch.Tensor],
     fan_render`: one kernel launch for all grids on the card)."""
     dev = sems[0].device
     az, dz, scale = FAN_TABLES(rays, num_az, dev)
-    o = np.asarray(origins, np.float32)
-    o_vox = (o - np.asarray(pc_range[:3], np.float32)) / np.float32(
-        voxel_size)
+    o_vox = _origins_vox(origins, voxel_size, pc_range)
     outs = fan_render([s.contiguous() for s in sems],
                       [f.contiguous() for f in flows], _to_device(o_vox, dev),
                       az, dz, scale, voxel_size, FREE_ID)
@@ -159,6 +176,46 @@ def render_sample_vec(sem: torch.Tensor, flow: torch.Tensor, rays, origins,
     outs = _render_grids([sem], [flow], rays, origins, origin_valid, num_az,
                          voxel_size, pc_range)
     return {k: v[0] for k, v in outs.items()}
+
+
+def _lookup(sem: torch.Tensor, flow: torch.Tensor, coord: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(label int32, flow float32) of the voxels ``coord`` (..., 3)."""
+    c = coord.long()
+    return (sem[c[..., 0], c[..., 1], c[..., 2]].to(torch.int32),
+            flow[c[..., 0], c[..., 1], c[..., 2]].float())
+
+
+def render_sample(sem: torch.Tensor, flow: torch.Tensor, rays, origins,
+                  origin_valid, max_steps: int = 448,
+                  voxel_size: float = _VOXEL_SIZE,
+                  pc_range: Tuple[float, ...] = _PC_RANGE) -> Rendered:
+    """A semantic grid (X, Y, Z) and its flow (X, Y, Z, 2) rendered along
+    every ray (R, 3) from every origin (T, 3) metres by the per-ray DDA:
+    dict of (T, R) ``dist`` (metres), ``label`` (int32), ``valid`` and
+    (T, R, 2) ``flow`` on the grid's device."""
+    dev = sem.device
+    o = torch.from_numpy(_origins_vox(origins, voxel_size, pc_range)).to(dev)
+    d = torch.as_tensor(np.asarray(rays, np.float32)).to(dev)
+    T, R = o.shape[0], d.shape[0]
+    dist, coord, _ = dda_raymarch(
+        sem != FREE_ID, o[:, None].expand(T, R, 3).reshape(T * R, 3),
+        d[None].expand(T, R, 3).reshape(T * R, 3), max_steps)
+    label, fl = _lookup(sem, flow, coord.reshape(T, R, 3))
+    valid = _to_device(np.asarray(origin_valid, bool), dev)
+    return {"dist": dist.reshape(T, R) * voxel_size, "label": label,
+            "flow": fl, "valid": valid[:, None].expand(T, R)}
+
+
+def render_sample_fast(sem: torch.Tensor, flow: torch.Tensor, rays, origins,
+                       origin_valid, num_az: int = 360,
+                       voxel_size: float = _VOXEL_SIZE,
+                       pc_range: Tuple[float, ...] = _PC_RANGE) -> Rendered:
+    """`render_sample`'s contract along the pitch-major fan ``rays`` (K *
+    num_az, 3): `render_sample_vec`, the loop-free fan marcher (on the card
+    one fan kernel launch for all origins)."""
+    return render_sample_vec(sem, flow, rays, origins, origin_valid, num_az,
+                             voxel_size, pc_range)
 
 
 _CONSTS: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}

@@ -5,7 +5,8 @@ projection into every camera, and the calibration-derived SCA top-K.
 All of it is fp32 and must agree bit for bit between the card and the CPU:
 the ring rig of `chip_smoke.py` puts BEV cells exactly on its cameras' field
 of view edges, where one ulp flips `bev_mask` and with it a query's camera
-count.  So the reference points, which depend on no input, are built on the
+count.  `compose_ego2img` folds lidar2img @ ego2lidar into one matrix a
+camera.  So the reference points, which depend on no input, are built on the
 host with numpy in float32 with true division (CUDA divides a tensor by a
 Python scalar through its reciprocal), and the 4x4 projection is written as
 four multiply-adds in a fixed order (a matrix product would go to cuBLAS on
@@ -81,6 +82,18 @@ def project_bev_points_to_cameras(
     # (B, C, Z, Q, .) -> (C, B, Q, Z, .), the layout SCA consumes
     return (xy.permute(1, 0, 3, 2, 4).contiguous(),
             mask.permute(1, 0, 3, 2).contiguous())
+
+
+def compose_ego2img(lidar2img, ego2lidar) -> torch.Tensor:
+    """ego2img = lidar2img @ ego2lidar per camera, fp32, on lidar2img's
+    device: lidar2img (B, C, 4, 4), ego2lidar (B, 4, 4), arrays or tensors
+    -> (B, C, 4, 4).  Each 4-term sum is (p0 + p1) + (p2 + p3) of the
+    rounded products, as XLA's CPU dot sums them (bitwise equal to the
+    jitted JAX einsum), never through cuBLAS."""
+    l2i = torch.as_tensor(lidar2img).float()
+    e2l = torch.as_tensor(ego2lidar).float().to(l2i.device)[:, None]
+    p = [l2i[..., :, j:j + 1] * e2l[..., j:j + 1, :] for j in range(4)]
+    return (p[0] + p[1]) + (p[2] + p[3])
 
 
 def calibration_topk(model_cfg, ego2img, margin: float = 1.02,

@@ -1,6 +1,7 @@
 """OccNet (port of `occnet_tpu/models/detector.py`): grid mask (training
-only) -> image trunk (ResNet-50/101, optionally with DCNv2 stages) -> FPN ->
-OccHead.  In DCN window mode the outputs carry the trunk's certificate
+only) -> image trunk (ResNet-50/101, optionally with DCNv2 stages, or
+VoVNet-V2 with ``backbone.type = "vovnet"``) -> FPN -> OccHead.  In DCN
+window mode the outputs carry the trunk's certificate
 `dcn_window_overflow` (0-d int64), beside the gather encoder's
 `sca_topk_overflow`, with ``only_bev`` too (history frames are checked as
 well)."""
@@ -16,6 +17,7 @@ from occnet_tpu_torch.config import ModelConfig
 from occnet_tpu_torch.models.fpn import FPN
 from occnet_tpu_torch.models.head import OccHead
 from occnet_tpu_torch.models.resnet import ResNet, stage_channels
+from occnet_tpu_torch.models.vovnet import VoVNet, vovnet_channels
 from occnet_tpu_torch.ops.grid_mask import grid_mask_apply, grid_mask_draw
 
 
@@ -23,17 +25,25 @@ class OccNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         bb = cfg.backbone
-        if not bb.type.startswith("resnet"):
-            raise ValueError(f"occnet_tpu_torch ports the ResNet trunk only, "
-                             f"got {bb.type}")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
-        self.backbone = ResNet(int(bb.type.replace("resnet", "")),
-                               bb.out_indices, self.dtype, bb.frozen_stages,
-                               bb.norm_eval, bb.dcn_stages, bb.dcn_mode,
-                               bb.dcn_window_radius,
-                               tuple(bb.dcn_window_radii))
-        self.neck = FPN(stage_channels(bb.out_indices), cfg.embed_dims,
+        if bb.type == "vovnet":
+            # its norms stay frozen in training, as the JAX OccNet calls
+            # its VoVNet without ``train``
+            self.backbone = VoVNet(bb.vovnet_spec, bb.out_indices,
+                                   bb.frozen_stages, self.dtype)
+            in_channels = vovnet_channels(bb.vovnet_spec, bb.out_indices)
+        elif bb.type.startswith("resnet"):
+            self.backbone = ResNet(int(bb.type.replace("resnet", "")),
+                                   bb.out_indices, self.dtype,
+                                   bb.frozen_stages, bb.norm_eval,
+                                   bb.dcn_stages, bb.dcn_mode,
+                                   bb.dcn_window_radius,
+                                   tuple(bb.dcn_window_radii))
+            in_channels = stage_channels(bb.out_indices)
+        else:
+            raise ValueError(f"unknown backbone type {bb.type!r}")
+        self.neck = FPN(in_channels, cfg.embed_dims,
                         cfg.neck.num_outs, cfg.neck.relu_before_extra_convs,
                         self.dtype)
         self.head = OccHead(cfg, self.dtype)

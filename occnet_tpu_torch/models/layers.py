@@ -28,19 +28,21 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """Square kernel, symmetric padding k // 2 (the JAX package's explicit
-    padding), optional stride."""
+    padding), optional stride; ``groups`` = channels is the depthwise conv
+    of flax's ``feature_group_count``."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
-                 bias: bool = True, dtype: torch.dtype = torch.float32):
+                 bias: bool = True, dtype: torch.dtype = torch.float32,
+                 groups: int = 1):
         super().__init__(in_ch, out_ch, k, stride=stride, padding=k // 2,
-                         bias=bias)
+                         bias=bias, groups=groups)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding)
+                        self.padding, 1, self.groups)
 
 
 class Conv3d(nn.Conv3d):

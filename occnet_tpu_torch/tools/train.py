@@ -331,6 +331,14 @@ def _train(args, device: torch.device):
     t0 = time.time()
     sd = from_jax_variables(init_jax_style_variables(cfg, seed=args.seed))
     if args.backbone_checkpoint:
+        if not cfg.model.backbone.type.startswith("resnet"):
+            # as the JAX CLI: a VoVNet checkpoint converts through the
+            # library (`utils.torch_convert.load_vovnet_into_state_dict`)
+            raise SystemExit(
+                f"--backbone-checkpoint takes a torchvision ResNet; for "
+                f"{cfg.model.backbone.type!r} convert the checkpoint with "
+                f"occnet_tpu_torch.utils.torch_convert."
+                f"load_vovnet_into_state_dict")
         from occnet_tpu_torch.utils.torch_convert import (
             load_resnet_into_state_dict)
         ref = torch.load(args.backbone_checkpoint, map_location="cpu",

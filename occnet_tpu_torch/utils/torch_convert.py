@@ -6,8 +6,9 @@ Capability equivalent of the reference's `pretrained='torchvision://
 resnet50'` backbone init (config `bevformer_base_occ.py:58`) and of its
 checkpoint load: `convert_torchvision_resnet` maps a torchvision ResNet-50 /
 101 state_dict, `convert_bevformer_occ_checkpoint` a whole reference
-`BEVFormerOcc` checkpoint, onto the JAX package's parameter tree, exactly as
-there.  Conventions:
+`BEVFormerOcc` checkpoint and `convert_vovnet` a reference VoVNet's
+(`models/backbones/vovnet.py`), onto the JAX package's parameter tree,
+exactly as there.  Conventions:
 
 - torch conv weight (O, I, kH, kW) -> flax (kH, kW, I, O)
 - BatchNorm weight / bias -> FrozenBatchNorm scale / bias (params);
@@ -17,10 +18,11 @@ there.  Conventions:
   input channels of conv1 so RGB inputs reproduce the BGR-trained
   activations.
 
-`load_resnet_into_state_dict` and `load_bevformer_into_state_dict` take the
-place of the JAX package's `load_*_into_variables`: the converted tree goes
-through `convert.from_jax_variables`'s layout rules into the port's keys and
-is merged into a port state_dict with the same checks (a converted key the
+`load_resnet_into_state_dict`, `load_vovnet_into_state_dict` and
+`load_bevformer_into_state_dict` take the place of the JAX package's
+`load_*_into_variables`: the converted tree goes through
+`convert.from_jax_variables`'s layout rules into the port's keys and is
+merged into a port state_dict with the same checks (a converted key the
 model lacks raises KeyError, a shape mismatch ValueError; modules absent
 from the checkpoint, the dense-mode extras, keep their values).
 
@@ -102,6 +104,80 @@ def convert_torchvision_resnet(
                     f"{src}.downsample.1")
             params[dst] = bp
             stats[dst] = bs
+    return params, stats
+
+
+# ---------------------------------------------------------------------------
+# VoVNet checkpoint conversion (reference models/backbones/vovnet.py)
+# ---------------------------------------------------------------------------
+
+def convert_vovnet(
+    state_dict: Mapping[str, "np.ndarray"],
+    spec: str = "V-99-eSE",
+    flip_input_channels: bool = True,
+) -> Tuple[Dict, Dict]:
+    """torch VoVNet state_dict -> (params, batch_stats) trees for the
+    `backbone` module.  Key layout of the reference module's OrderedDict
+    naming: `stem.stem_1/conv.weight`,
+    `stage2.OSA2_1.layers.0.OSA2_1_0/conv.weight`, depthwise presets with
+    `/dw_conv3x3` + `/pw_conv1x1` + `/pw_norm`, `conv_reduction`, `concat`,
+    `ese.fc`; `module.` and `backbone.` prefixes dropped."""
+    from occnet_tpu_torch.models.vovnet import VOVNET_SPECS
+
+    s = VOVNET_SPECS[spec]
+    sd = {k.replace("module.", "").replace("backbone.", ""): v
+          for k, v in state_dict.items()}
+    params: Dict = {}
+    stats: Dict = {}
+
+    def bn_pair(src):
+        p = {"scale": _to_np(sd[f"{src}.weight"]),
+             "bias": _to_np(sd[f"{src}.bias"])}
+        st = {"mean": _to_np(sd[f"{src}.running_mean"]),
+              "var": _to_np(sd[f"{src}.running_var"])}
+        return p, st
+
+    def conv_bn(src):
+        bp = {"conv": {"kernel": _conv(sd[f"{src}/conv.weight"])}}
+        bp["bn"], bs = bn_pair(f"{src}/norm")
+        return bp, {"bn": bs}
+
+    def dw_block(src):
+        bp = {"dw_conv": {"kernel": _conv(sd[f"{src}/dw_conv3x3.weight"])},
+              "pw_conv": {"kernel": _conv(sd[f"{src}/pw_conv1x1.weight"])}}
+        bp["pw_bn"], bs = bn_pair(f"{src}/pw_norm")
+        return bp, {"pw_bn": bs}
+
+    # stem (BGR -> RGB flip on the first conv, as for ResNet)
+    w = _conv(sd["stem.stem_1/conv.weight"])
+    if flip_input_channels:
+        w = w[:, :, ::-1, :].copy()
+    params["stem0"] = {"conv": {"kernel": w}}
+    params["stem0"]["bn"], bs0 = bn_pair("stem.stem_1/norm")
+    stats["stem0"] = {"bn": bs0}
+    for i, post in ((1, "stem_2"), (2, "stem_3")):
+        params[f"stem{i}"], stats[f"stem{i}"] = (
+            dw_block if s["dw"] else conv_bn)(f"stem.{post}")
+
+    for stage in range(4):
+        sn = stage + 2
+        for b in range(s["blocks"][stage]):
+            src = f"stage{sn}.OSA{sn}_{b + 1}"
+            bp: Dict = {}
+            bs: Dict = {}
+            red = f"{src}.conv_reduction.OSA{sn}_{b + 1}_reduction_0"
+            if f"{red}/conv.weight" in sd:
+                bp["reduction"], bs["reduction"] = conv_bn(red)
+            for i in range(s["layers"]):
+                bp[f"l{i}"], bs[f"l{i}"] = (dw_block if s["dw"] else conv_bn)(
+                    f"{src}.layers.{i}.OSA{sn}_{b + 1}_{i}")
+            bp["concat"], bs["concat"] = conv_bn(
+                f"{src}.concat.OSA{sn}_{b + 1}_concat")
+            bp["ese"] = {"fc": {
+                "kernel": _conv(sd[f"{src}.ese.fc.weight"]),
+                "bias": _to_np(sd[f"{src}.ese.fc.bias"])}}
+            params[f"stage{sn}_{b}"] = bp
+            stats[f"stage{sn}_{b}"] = bs
     return params, stats
 
 
@@ -263,6 +339,19 @@ def load_resnet_into_state_dict(state_dict: Mapping[str, torch.Tensor],
     torchvision ResNet."""
     params, stats = convert_torchvision_resnet(resnet_state_dict, depth,
                                                flip_input_channels)
+    return merge_into_state_dict(state_dict, {"backbone": params},
+                                 {"backbone": stats})
+
+
+def load_vovnet_into_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                vovnet_state_dict: Mapping,
+                                spec: str = "V-99-eSE",
+                                flip_input_channels: bool = True
+                                ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict with its backbone replaced by a converted
+    reference VoVNet of preset ``spec``."""
+    params, stats = convert_vovnet(vovnet_state_dict, spec,
+                                   flip_input_channels)
     return merge_into_state_dict(state_dict, {"backbone": params},
                                  {"backbone": stats})
 

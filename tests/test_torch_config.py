@@ -97,6 +97,11 @@ def test_port_modules_import_without_the_jax_package():
         "parallel", "parallel.mesh", "parallel.multihost",
         "training.checkpoint", "utils.events", "utils.profiling", "entry",
         "tools.bench", "tools.step_noise")} <= mods, r.stdout
+    # and the VoVNet / detection / library slice's
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "models.vovnet", "models.decoder", "models.perception",
+        "models.bbox", "models.positional", "ops.render_diff",
+        "ops.ray_march_fast", "utils.vis")} <= mods, r.stdout
 
 
 def test_train_cli_needs_the_card_or_device_cpu(monkeypatch, tmp_path):
