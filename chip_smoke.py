@@ -255,6 +255,22 @@ Phases (each raises on failure, so any failure exits nonzero):
               origins, against their CPU plain versions and render_pred_gt;
               the expected depth and its gradient card vs CPU; each timed
               over 20 launches or calls, the expected depth also profiled
+ 41. model axis  turbo_occ and base_occ train steps (full width, bf16,
+              B = 1, dropout and grid mask on) at dp = 1 x mp = 2 with the
+              BEV queries sharded, two gloo ranks on the one card under
+              torchrun, against the in-process unsharded step: loss and BN
+              statistics within QSHARD_RTOL, every leaf within GRAD_RTOL,
+              the ranks bitwise equal, the
+              unsharded step's launches a rank, certificates 0; each rank's
+              step split (the halo / gather collectives apart) and peak
+              beside the unsharded step's.  Then the lift (rows of a half),
+              tap and tap_bwd (a half plus its halo, H = 102) and MSDA /
+              msda_bwd (Q = 20,000 over the whole value) against their
+              plain versions
+ 42. soak     the turbo_occ train CLI (SOAK_STEPS steps on SOAK_SCENES
+              synthetic scenes, an eval and a checkpoint each epoch) and
+              tools.soak_report over its work directory: the JAX tool's
+              keys, the manager's checkpoints, a finite peak, no abort
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -420,9 +436,10 @@ def bf16_step_apart(torch, a, b):
     return ((a - b).abs() > bound).sum().item()
 
 
-def lift_geometry(torch, m, e2i, levels):
+def lift_geometry(torch, m, e2i, levels, rows=None):
     """Per level (pos1, pos2, steep) and the level-0 inv_count of the lift
-    at the model's BEV grid, for the feature sizes ``levels``."""
+    at the model's BEV grid (its rows ``rows`` = (r0, r1) alone when
+    given), for the feature sizes ``levels``."""
     from occnet_tpu_torch.ops import planar_lift
     Z = m.encoder.num_points_in_pillar
     bev_hw, img_hw = (m.bev_h, m.bev_w), (m.img_h, m.img_w)
@@ -431,7 +448,8 @@ def lift_geometry(torch, m, e2i, levels):
     geo, inv = [], None
     for h, w in levels:
         Ml = planar_lift.feature_homographies(H, h, w, img_hw)
-        p1, p2, st, valid = planar_lift.level_geometry(Ml, bev_hw, h, w)
+        p1, p2, st, valid = planar_lift.level_geometry(Ml, bev_hw, h, w,
+                                                       rows=rows)
         if inv is None:
             count = valid.any(dim=2).sum(dim=1).float().clamp(min=1.0)
             inv = (1.0 / count).reshape(e2i.shape[0], -1).contiguous()
@@ -4555,7 +4573,7 @@ def _dist_step_checks(torch, results, tmp):
                        "dryrun", "2"], "the entry point's dry run")
     log(f"  entry dryrun 2 in {dt:.1f} s: " + "; ".join(
         out.strip().splitlines()))
-    if out.count("on cuda:") != 2 or "OK" not in out:
+    if out.count("on cuda:") != 3 or "OK" not in out:
         raise RuntimeError(f"the dry run did not run on the card:\n{out}")
     from occnet_tpu_torch.config import get_config
     m = get_config("turbo_occ").model
@@ -5318,6 +5336,404 @@ def phase_renders(torch, results):
 
 
 
+# --- phases 41-42: BEV-query sharding over a model axis, the soak report ---
+
+QSHARD_MP = 2                # model ranks of phase 41 (gloo, one card)
+QSHARD_CFGS = {"turbo_occ": ("lift", "tap", "lift_bwd", "tap_bwd"),
+               "base_occ": ("msda", "msda_bwd")}
+QSHARD_RTOL = 1e-3           # loss and BN statistics, sharded vs unsharded
+SOAK_SCENES, SOAK_STEPS = 4, 8   # phase 42: two epochs, an eval after each
+
+
+def qshard_cfg(name):
+    """``name`` with its BEV queries sharded over the model axis
+    (``bev_shard_axis = "model"``, ``parallel.mp = 2``), the config's
+    dropout and grid mask on."""
+    from occnet_tpu_torch.config import apply_overrides, get_config
+    return apply_overrides(get_config(name), {
+        "model.bev_shard_axis": "model", "parallel.mp": str(QSHARD_MP)})
+
+
+def timed_step(torch, step, state, batch, counters):
+    """One more step of ``step``, timed: host ms, the CUDA-event split by
+    the step's marks with the halo / gather collectives inside the forward
+    and the backward taken apart (`parallel.qshard.collective_events`),
+    peak GiB of the step and the hand kernels' launches."""
+    from occnet_tpu_torch.parallel.qshard import collective_events
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [("start", torch.cuda.Event(enable_timing=True), 0)]
+    with collective_events() as events:
+        def mark(label):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append((label, e, len(events)))
+
+        t = time.perf_counter()
+        ev[0][1].record()
+        met = step(state, batch, mark)
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t) * 1e3
+    split = {}
+    for (_, a, na), (label, b, nb) in zip(ev, ev[1:]):
+        coll = sum(s.elapsed_time(e) for s, e in events[na:nb])
+        split[label] = a.elapsed_time(b) - coll
+        if coll:
+            split[f"{label} collectives"] = coll
+    return {"step_ms": host, "split_ms": split, "loss2": float(met["loss"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: v.launches for k, v in counters.items()}}
+
+
+def qshard_step_rank(argv):
+    """One rank of phase 41 (``chip_smoke.py qshard-step OUT CONFIGS``,
+    under torchrun: 2 gloo ranks sharing the card, dp = 1 x mp = 2): for
+    each config one step with the BEV queries sharded on the B = 1 batch
+    (rank 0 saves its gradients, parameters and buffers; every rank its
+    metrics and how many leaves differ from rank 0's), then one more step
+    timed (`timed_step`)."""
+    import torch
+    import torch.distributed as dist
+    from occnet_tpu_torch import parallel
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.parallel.multihost import local_device, shutdown
+    from occnet_tpu_torch.training.train import (create_train_state,
+                                                 make_train_step)
+    out_dir, names = argv[0], argv[1].split(",")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.initialize("gloo")
+    rank, world = parallel.process_shard()
+    dev = local_device("cuda")
+    mesh = parallel.make_mesh(1, QSHARD_MP)
+    res = {"world": world, "device": str(dev),
+           "mesh": (mesh.dp, mesh.mp, mesh.data_rank, mesh.model_rank)}
+    try:
+        for name in names:
+            cfg = qshard_cfg(name)
+            state = create_train_state(cfg, from_jax_variables(
+                init_jax_style_variables(cfg, seed=0)), dev)
+            batch = parallel.global_batch(parallel.shard_batch(
+                dist_step_batch(cfg, 1), mesh), dev)
+            step = make_train_step(cfg, seed=0, mesh=mesh)
+            r = {"metrics": {k: float(v) for k, v in
+                             step(state, batch).items()}}
+            if rank == 0:
+                r["params"] = {n: p.detach().cpu() for n, p in
+                               state.model.named_parameters()}
+                r["grads"] = {n: p.grad.detach().float().cpu() for n, p in
+                              state.model.named_parameters()
+                              if p.grad is not None}
+                r["buffers"] = {n: b.detach().cpu() for n, b in
+                                state.model.named_buffers()}
+            differ = 0
+            for t in list(state.model.parameters()) + list(
+                    state.model.buffers()):
+                ref = t.detach().clone()
+                dist.broadcast(ref, 0)
+                differ += int(not torch.equal(ref, t.detach()))
+            r["differ"] = differ
+            r.update(timed_step(torch, step, state, batch,
+                                kernel_counters(QSHARD_CFGS[name])))
+            res[name] = r
+            del state, batch
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        parallel.barrier()
+    finally:
+        shutdown()
+
+
+def qshard_reference(torch, name):
+    """The in-process unsharded step of `qshard_step_rank` (a one-rank
+    layout) on the same weights and batch: its metrics, gradients, first
+    update, buffers, and one more step timed."""
+    from occnet_tpu_torch.convert import (from_jax_variables,
+                                          init_jax_style_variables)
+    from occnet_tpu_torch.parallel import Mesh
+    from occnet_tpu_torch.tools.train import to_device
+    from occnet_tpu_torch.training.train import (create_train_state,
+                                                 make_train_step)
+    cfg = qshard_cfg(name)
+    sd = from_jax_variables(init_jax_style_variables(cfg, seed=0))
+    state = create_train_state(cfg, sd, "cuda")
+    batch = to_device(dist_step_batch(cfg, 1), "cuda")
+    step = make_train_step(cfg, seed=0, mesh=Mesh(1, 1, 0, 0))
+    met = {k: float(v) for k, v in step(state, batch).items()}
+    ref = {"metrics": met,
+           "grads": {n: p.grad.detach().float().cpu() for n, p in
+                     state.model.named_parameters() if p.grad is not None},
+           "update": {n: p.detach().cpu() - sd[n] for n, p in
+                      state.model.named_parameters()},
+           "buffers": {n: b.detach().cpu() for n, b in
+                       state.model.named_buffers()}, "sd": sd}
+    ref.update(timed_step(torch, step, state, batch,
+                          kernel_counters(QSHARD_CFGS[name])))
+    del state, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def relative_stats(got, ref):
+    """The BN statistics' largest difference, relative to each buffer's
+    largest magnitude (at least 1)."""
+    return max((got[n].float() - b.float()).abs().max().item()
+               / max(b.float().abs().max().item(), 1.0)
+               for n, b in ref.items() if b.is_floating_point())
+
+
+def log_rank_step(label, r):
+    """One line of a `timed_step` record."""
+    log(f"    {label}: step {r['step_ms']:.3f} ms host; CUDA events "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r["split_ms"].items())
+        + f" ms; peak {r['peak_gib']:.3f} GiB; launches {r['launches']}")
+
+
+def phase_qshard(torch, results, tmp):
+    """Phase 41: model-parallel steps.  (1) `turbo_occ` and `base_occ` at
+    full width, bf16, B = 1, dropout and grid mask on, at dp = 1 x mp = 2
+    with the BEV queries sharded (torchrun, 2 gloo ranks on the one card),
+    against the in-process unsharded step on the same weights and batch
+    (the sharded step draws the unsharded step's dropout masks): loss and
+    BN statistics within QSHARD_RTOL relative, every gradient leaf within
+    GRAD_RTOL of its max; the ranks' parameters and buffers bitwise equal
+    after the update, the same hand kernels launched as by the unsharded
+    step, base_occ's certificate 0.
+    Each rank's step split and peak beside the unsharded step's.  (2) The
+    kernels at the sharded shapes against their plain versions
+    (`phase_qshard_kernels`)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _qshard_checks(torch, results, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    phase_qshard_kernels(torch, results)
+
+
+def _qshard_checks(torch, results, tmp):
+    out = os.path.join(tmp, "qshard")
+    os.makedirs(out)
+    names = ",".join(QSHARD_CFGS)
+    _, dt = run_cmd(torchrun(QSHARD_MP, os.path.join(REPO, "chip_smoke.py"),
+                             "qshard-step", out, names),
+                    "the dp = 1 x mp = 2 launch")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(QSHARD_MP)]
+    log(f"  dp = 1 x mp = 2 launch (gloo, both ranks on {ranks[0]['device']}"
+        f") in {dt:.1f} s: meshes {[r['mesh'] for r in ranks]}; card "
+        f"{nvidia_smi()}")
+    summary = {}
+    for name in QSHARD_CFGS:
+        ref16 = qshard_reference(torch, name)
+        got = ranks[0][name]
+        d = step_distance(got, ref16)
+        bad = [n for n, (e, _) in d["leaf"].items() if e > GRAD_RTOL]
+        stats = relative_stats(got["buffers"], ref16["buffers"])
+        worst = max(d["leaf"], key=lambda n: d["leaf"][n][0])
+        for i, r in enumerate(ranks):
+            log_rank_step(f"{name} rank {i}", r[name])
+        log_rank_step(f"{name} unsharded (in process)", ref16)
+        log(f"  {name} sharded vs unsharded: loss {d['loss']:.2e}, BN "
+            f"statistics {stats:.2e} (relative), grad norm "
+            f"{d['grad_norm']:.2e}, whole gradient L2 {d['grad_l2']:.3e}, "
+            f"first update L2 {d['update_l2']:.3e}; worst leaf "
+            f"{d['leaf'][worst][0]:.3e} of its max ({worst}); leaves over "
+            f"GRAD_RTOL: {bad}; peak per rank "
+            f"{[round(r[name]['peak_gib'], 3) for r in ranks]} GiB against "
+            f"{ref16['peak_gib']:.3f} GiB unsharded; certificates "
+            f"{[r[name]['metrics']['cert_overflow'] for r in ranks]}")
+        same = all(r[name]["metrics"] == ranks[0][name]["metrics"]
+                   and r[name]["differ"] == 0 for r in ranks)
+        want = ref16["launches"]
+        if not (d["loss"] <= QSHARD_RTOL and stats <= QSHARD_RTOL
+                and not bad and same
+                and all(r[name]["launches"] == want for r in ranks)
+                and all(r[name]["metrics"]["cert_overflow"] == 0
+                        and np.isfinite(r[name]["loss2"]) for r in ranks)
+                and ref16["metrics"]["cert_overflow"] == 0):
+            raise RuntimeError(
+                f"{name}: the sharded step is not the unsharded step (loss "
+                f"{d['loss']}, statistics {stats}, leaves over {bad}, ranks "
+                f"equal {same}, launches {[r[name]['launches'] for r in ranks]}"
+                f" vs {want})")
+        summary[name] = {
+            "loss": d["loss"], "stats": stats, "grad_l2": d["grad_l2"],
+            "update_l2": d["update_l2"],
+            "worst_leaf_max": d["leaf"][worst][0],
+            "ranks": [{k: r[name][k] for k in ("step_ms", "split_ms",
+                                                "peak_gib", "launches")}
+                      for r in ranks],
+            "unsharded": {k: ref16[k] for k in ("step_ms", "split_ms",
+                                                 "peak_gib", "launches")}}
+        del ref16
+        torch.cuda.empty_cache()
+    results["qshard"] = summary
+
+
+def phase_qshard_kernels(torch, results):
+    """The hand kernels at the shapes of a model rank at mp = 2, against
+    their plain versions with the tolerances of phases 3, 6, 9 and 19:
+    the lift of each half of turbo_occ's BEV rows (forward bitwise, the
+    backward within one bf16 step, its index bitwise the plain index with
+    the premise holding); the tap attention and its backward on a half
+    plus its halo, (1, 2, 102, 200, 256) bf16, the halo rows' attention
+    zero (within TAP_TOL); MSDA and its backward at base_occ's TSA shape
+    with Q = 20,000 queries over the whole 40,000-row value (bf16 and
+    f32)."""
+    from occnet_tpu_torch.config import base_occ, turbo_occ
+    from occnet_tpu_torch.ops import msda, tsa
+    from occnet_tpu_torch.ops.lift_cuda import (lift_bwd_index,
+                                                lift_bwd_index_plain,
+                                                lift_level_bwd_cuda,
+                                                lift_level_bwd_plain,
+                                                lift_level_cuda,
+                                                lift_level_plain)
+    m = turbo_occ().model
+    dev = torch.device("cuda")
+    C = m.embed_dims
+    gen = torch.Generator(device=dev).manual_seed(41)
+    levels = [(116, 200), (58, 100), (29, 50), (15, 25)]
+    rows = m.bev_h // QSHARD_MP
+    e2i = torch.from_numpy(ring_rig(m, 1)).to(dev)
+    feats = [torch.randn(1, m.num_cams, h, w, C, generator=gen, device=dev
+                         ).to(torch.bfloat16) for h, w in levels]
+    worst_bwd = 0.0
+    for r0 in range(0, m.bev_h, rows):
+        geo, inv = lift_geometry(torch, m, e2i, levels, (r0, r0 + rows))
+        ZR = geo[0][1].shape[2]
+        for (h, w), (p1, p2, st), f in zip(levels, geo, feats):
+            uk = torch.empty(1, ZR, m.bev_w, C, dtype=torch.bfloat16,
+                             device=dev)
+            up = torch.empty_like(uk)
+            lift_level_cuda(f, p1, p2, st, inv, uk)
+            lift_level_plain(f, p1, p2, st, inv, up)
+            ix = lift_bwd_index(p1, p2, st, (h, w))
+            ix.check()
+            runs, excess = lift_bwd_index_plain(p1, p2, st, (h, w))
+            g = torch.randn(1, ZR, m.bev_w, C, generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            dk = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w),
+                                     index=ix).float()
+            dp = lift_level_bwd_plain(g, p1, p2, st, inv, (h, w)).float()
+            bad = bf16_step_apart(torch, dk, dp)
+            worst_bwd = max(worst_bwd, (dk - dp).abs().max().item())
+            if not (torch.equal(uk, up) and torch.equal(ix.runs, runs)
+                    and int(excess) == 0 and not bad
+                    and torch.isfinite(dk).all().item()):
+                raise RuntimeError(f"lift at rows [{r0}, {r0 + rows}) level "
+                                   f"{h}x{w}: kernel differs from plain")
+        log(f"  lift rows [{r0}, {r0 + rows}) (ZR = {ZR}), 4 levels: forward "
+            f"bitwise equal to the plain version, backward index bitwise "
+            f"(premise holds), backward within one bf16 step")
+    heads, nq = m.encoder.tsa.num_heads, m.encoder.tsa.num_bev_queue
+    H = rows + 2
+    v = torch.randn(1, nq, H, m.bev_w, C, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    attn = torch.softmax(torch.randn(1, H, m.bev_w, nq, len(tsa.TSA_TAPS),
+                                     heads, generator=gen, device=dev),
+                         dim=4).to(torch.bfloat16)
+    attn[:, 0] = 0
+    attn[:, -1] = 0
+    g = torch.randn(1, H, m.bev_w, C, generator=gen, device=dev)
+    tap_err = []
+    for label, got, want in (
+            ("tap", (tsa.tap_attention_cuda(v, attn),),
+             (tsa.tap_attention_plain(v, attn),)),
+            ("tap_bwd", tsa.tap_attention_bwd_cuda(v, attn, g),
+             tsa.tap_attention_bwd_plain(v, attn, g))):
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            ok = bool(((a - b).abs() <= TAP_TOL + TAP_TOL * b.abs()).all())
+            tap_err.append((a - b).abs().max().item())
+            if not (ok and torch.isfinite(a).all().item()):
+                raise RuntimeError(f"{label} at {tuple(v.shape)} differs from "
+                                   f"plain")
+    k = cuda_ms(torch, lambda: tsa.tap_attention_cuda(v, attn), 10)
+    kb = cuda_ms(torch, lambda: tsa.tap_attention_bwd_cuda(v, attn, g), 10)
+    log(f"  tap and tap_bwd at {tuple(v.shape)} (a half of the rows and its "
+        f"halo, H = {H}): within {TAP_TOL} of the plain versions (max|diff| "
+        f"{max(tap_err):.3e}); kernel {k:.4f} / {kb:.4f} ms")
+    del v, attn, g
+    bm = base_occ().model
+    t = bm.encoder.tsa
+    D = bm.embed_dims // t.num_heads
+    Q = bm.bev_h * bm.bev_w // QSHARD_MP
+    shapes = [(bm.bev_h, bm.bev_w)]
+    v32, loc, attn, g32 = msda_draw(torch, gen, t.num_bev_queue, Q,
+                                    t.num_heads, D, shapes, t.num_points)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        v = v32.to(dtype)
+        a, b = (msda.msda_cuda(v, shapes, loc, attn).float(),
+                msda.msda_plain(v, shapes, loc, attn).float())
+        tol = ((MSDA_BF16_TOL, MSDA_BF16_TOL) if dtype == torch.bfloat16
+               else (MSDA_F32_ATOL, MSDA_F32_RTOL))
+        if not bool(((a - b).abs() <= tol[0] + tol[1] * b.abs()).all()):
+            raise RuntimeError(f"msda at Q = {Q} ({dtype}) differs from "
+                               f"plain")
+        worst = max(worst, (a - b).abs().max().item())
+        err, tb, _ = msda_bwd_case(
+            torch, f"msda_bwd TSA value {tuple(v.shape)} {dtype}, Q={Q}", v,
+            shapes, loc, attn, g32.to(dtype),
+            BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_F32_TOL,
+            plain=False, reps=2)
+        worst = max(worst, err)
+        del v
+    log(f"  msda at base_occ's TSA shape, Q = {Q} queries over "
+        f"{bm.bev_h * bm.bev_w} value rows, bf16 and f32: within the "
+        f"phase 9 / 19 bounds (max|diff| {worst:.3e})")
+    results["qshard_kernels"] = {"lift_bwd_max_abs_err": worst_bwd,
+                                 "tap_max_abs_err": max(tap_err),
+                                 "tap_ms": k, "tap_bwd_ms": kb,
+                                 "msda_max_abs_err": worst}
+
+
+def phase_soak(torch, results):
+    """Phase 42: the soak report.  The train CLI in process on
+    `turbo_occ` at full width, SOAK_SCENES synthetic scenes (an epoch of
+    SOAK_SCENES steps), SOAK_STEPS steps with the eval hook after each
+    epoch and a checkpoint at each; then `tools.soak_report` over its work
+    directory: the JAX tool's keys, the manager's checkpoint steps, a
+    finite peak, no abort, two evals."""
+    import shutil
+    import tempfile
+    from occnet_tpu_torch.tools import soak_report
+    from occnet_tpu_torch.tools import train as cli
+    from occnet_tpu_torch.training.checkpoint import CheckpointManager
+    work = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+    t = time.perf_counter()
+    try:
+        cli.main(["--config", "turbo_occ", "--synthetic-geometric",
+                  str(SOAK_SCENES), "--synthetic-render-scale", "4",
+                  "--eval-interval-epochs", "1", "--max-steps",
+                  str(SOAK_STEPS), "--work-dir", work])
+        rep = soak_report.soak_report(work, "turbo_occ")
+        mngr = CheckpointManager(work)
+        kept = mngr.all_steps()
+        mngr.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t
+    keys = {"config", "steps_logged", "first_step", "last_step",
+            "loss_first", "loss_last", "s_per_it_early", "s_per_it_late",
+            "s_per_it_drift_pct", "cert_overflow_total", "evals",
+            "checkpoints", "peak_hbm_gib", "aborts"}
+    log(f"  train CLI ({SOAK_STEPS} steps, {SOAK_SCENES} scenes) and the "
+        f"report in {wall:.1f} s: {json.dumps(rep)}; card {nvidia_smi()}")
+    if not (rep.keys() == keys and rep["checkpoints"] == kept
+            and kept == [SOAK_SCENES, SOAK_STEPS]
+            and rep["peak_hbm_gib"] is not None
+            and np.isfinite(rep["peak_hbm_gib"]) and rep["aborts"] == 0
+            and len(rep["evals"]) == 2 and rep["cert_overflow_total"] == 0):
+        raise RuntimeError(f"the soak report is wrong: {rep}")
+    results["soak"] = rep
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5496,6 +5912,24 @@ def main():
         run()
         torch.cuda.empty_cache()
         log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_qshard_")
+    try:
+        for n, label, run in (
+                (41, "model-parallel steps: turbo_occ and base_occ at dp = 1 "
+                     "x mp = 2 with the BEV queries sharded (gloo, one card) "
+                     "against the unsharded step; the kernels at the "
+                     "sharded shapes", lambda: phase_qshard(torch, results,
+                                                            tmp)),
+                (42, "soak report: the turbo_occ train CLI with the eval "
+                     "hook and checkpoints, then tools.soak_report",
+                 lambda: phase_soak(torch, results))):
+            log(f"[{n} {label}]")
+            t = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -5588,6 +6022,12 @@ def main():
     by_name["msda"]["vovnet_serve_launches"] = results["vovnet"]["serve_msda"]
     by_name["msda_bwd"]["vovnet_train_launches"] = \
         results["vovnet"]["train_msda_bwd"]
+    # launches of a model rank's sharded step (phase 41, rank 0, counted
+    # from 0 over one step)
+    for name in QSHARD_CFGS:
+        for kname, n in results["qshard"][name]["ranks"][0][
+                "launches"].items():
+            by_name[kname]["qshard_launches"] = n
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     for k in kernels:
@@ -5603,5 +6043,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dist-step"]:
         dist_step_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["qshard-step"]:
+        qshard_step_rank(sys.argv[2:])
     else:
         main()

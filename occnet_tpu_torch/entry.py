@@ -12,13 +12,16 @@ multi-rank dry run of the train step.
   forward (R50 + FPN + planar-lift dense encoder + 200 x 200 x 16 voxel
   decoder, bf16, random JAX-style weights from seed 0) returning the
   occupancy logits, on the card unless ``device`` says otherwise;
-- `dryrun_multichip(n, device)`: one train step of a tiny
-  `tiny_turbo_occ` at dp = n and one of a tiny `tiny_occ` (the gather
-  encoder), each over n ranks launched by torchrun, with a timeout on the
-  launch.  The ranks run on the card unless ``device`` is "cpu": NCCL with
-  one card a rank when n cards show, else gloo with ranks sharing the
-  cards; "cpu" runs gloo ranks on the CPU.  The JAX dry run's dp x mp = 2
-  mesh (BEV-query sharding) is not carried: ROADMAP Queue 1 item 7.
+- `dryrun_multichip(n, device)`: the JAX dry run's steps over n ranks
+  launched by torchrun, with a timeout on the launch: a tiny
+  `tiny_turbo_occ` at dp = n; a tiny `tiny_occ` (the gather encoder) at
+  dp = n / 2 x mp = 2 with the model axis replicated; and a tiny
+  `tiny_turbo_occ` with its BEV queries sharded over the model axis at
+  dp = n / 2 x mp = 2 (the JAX dry run's 2-process Q-sharded step).  At
+  an odd n the two mp = 2 steps cannot run: `tiny_occ` runs at dp = n and
+  the sharded step is left out.  The ranks run on the card unless
+  ``device`` is "cpu": NCCL with one card a rank when n cards show, else
+  gloo with ranks sharing the cards; "cpu" runs gloo ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -99,8 +102,8 @@ def _dryrun_cfg(name: str):
 
 
 def _dryrun_rank(device: str, backend: str) -> Dict[str, float]:
-    """One rank of `dryrun_multichip`: both configs' steps at dp = world on
-    the rank's ``device``; returns each config's loss."""
+    """One rank of `dryrun_multichip`: the dry run's steps (module doc) on
+    the rank's ``device``; returns each step's loss by name."""
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
     from occnet_tpu_torch.parallel import (global_batch, initialize,
@@ -111,25 +114,34 @@ def _dryrun_rank(device: str, backend: str) -> Dict[str, float]:
                                                  make_train_step)
     initialize(backend)
     rank, world = process_shard()
+    mp = 2 if world % 2 == 0 else 1
+    steps = [("tiny_turbo_occ", "tiny_turbo_occ", 1, ""),
+             ("tiny_occ", "tiny_occ", mp, "")]
+    if mp == 2:
+        steps.append(("tiny_turbo_occ_qshard", "tiny_turbo_occ", 2, "model"))
     losses = {}
     try:
         dev = local_device(device)
-        dp = make_mesh()
-        for name in ("tiny_turbo_occ", "tiny_occ"):
+        for label, name, m, axis in steps:
             cfg = _dryrun_cfg(name)
-            batch = example_batch(cfg, batch_size=dp)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, bev_shard_axis=axis))
+            mesh = make_mesh(-1, m)
+            batch = example_batch(cfg, batch_size=mesh.dp)
             batch["voxel_semantics"] = batch["voxel_semantics"].astype(
                 np.int64)
             state = create_train_state(cfg, from_jax_variables(
                 init_jax_style_variables(cfg, seed=0)), dev)
-            metrics = make_train_step(cfg)(state, global_batch(
-                shard_batch(batch, dp), dev))
+            metrics = make_train_step(cfg, mesh=mesh)(state, global_batch(
+                shard_batch(batch, mesh), dev))
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
-                raise RuntimeError(f"dryrun[{name}] rank {rank}: loss {loss}")
-            losses[name] = loss
+                raise RuntimeError(f"dryrun[{label}] rank {rank}: loss "
+                                   f"{loss}")
+            losses[label] = loss
             if rank == 0:
-                print(f"dryrun[{name}] dp={dp} on {dev} "
+                print(f"dryrun[{label}] mesh {mesh.shape}"
+                      f"{' (BEV queries sharded)' if axis else ''} on {dev} "
                       f"({backend if world > 1 else 'one process'}) "
                       f"loss={loss:.4f} OK", flush=True)
     finally:

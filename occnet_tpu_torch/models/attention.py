@@ -127,11 +127,18 @@ class SpatialCrossAttention(nn.Module):
                 reference_points_cam: torch.Tensor, bev_mask: torch.Tensor,
                 spatial_shapes: Sequence[Tuple[int, int]],
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """query (B, Q, C), value (B, cams, V, C), reference_points_cam
         (cams, B, Q, Z, 2), bev_mask (cams, B, Q, Z) -> ((B, Q, C),
-        sca_topk_overflow, a 0-d int64 tensor; 0 on the dense branch)."""
+        sca_topk_overflow, a 0-d int64 tensor; 0 on the dense branch).
+
+        With ``shard`` (a `parallel.qshard.QShard`) the Q queries are its
+        block: they are compacted with ``topk_sizes(Q)``, and the
+        certificate is the unsharded one, the per-camera visible counts
+        summed over the model group against the unsharded K.  While it is
+        0 every visible query of the block fits its K, and the block's
+        output is the unsharded output's rows."""
         B, Q, C = query.shape
         n_cam = self.num_cams
         msda = self.deformable_attention
@@ -145,10 +152,15 @@ class SpatialCrossAttention(nn.Module):
         count = visible.sum(dim=1).clamp(min=1).float()        # (B, Q)
         overflow = torch.zeros((), dtype=torch.int64, device=query.device)
         ks = self.topk_sizes(Q)
-        if ks:
+        ks_cert = ks if shard is None else self.topk_sizes(shard.num_queries)
+        if ks_cert:
             n_visible = visible.sum(dim=2)                     # (B, cam)
-            k_t = torch.tensor(ks, dtype=torch.int64, device=query.device)
+            if shard is not None:
+                n_visible = shard.sum_(n_visible)
+            k_t = torch.tensor(ks_cert, dtype=torch.int64,
+                               device=query.device)
             overflow = (n_visible - k_t).clamp(min=0).max()
+        if ks:
             scores = vis_cnt.permute(1, 0, 2)                  # (B, cam, Q)
             groups: dict = {}
             for ci, k in enumerate(ks):
@@ -219,9 +231,13 @@ class TemporalSelfAttention(nn.Module):
                 reference_points: torch.Tensor,
                 spatial_shapes: Sequence[Tuple[int, int]],
                 train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         """query (B, Q, C), prev_bev (B, 2, Q, C) or None, reference_points
-        (B, 2, Q, L, 2) -> (B, Q, C)."""
+        (B, 2, Q, L, 2) -> (B, Q, C).  With ``shard`` (a `parallel.qshard.
+        QShard`) the Q queries are its block, and the projected value of
+        both slots is gathered over the model group: the queries sample the
+        whole BEV."""
         B, Q, C = query.shape
         H, L, P = self.cfg.num_heads, self.cfg.num_levels, self.cfg.num_points
         nq = self.cfg.num_bev_queue
@@ -231,8 +247,10 @@ class TemporalSelfAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         query_aug = torch.cat([value[:, 0], query], dim=-1)
-        value = self.value_proj(value.reshape(B * nq, Q, C)).reshape(
-            B * nq, Q, H, C // H)
+        value = self.value_proj(value.reshape(B * nq, Q, C))
+        if shard is not None:
+            value = shard.gather(value)
+        value = value.reshape(B * nq, -1, H, C // H)
         offsets = self.sampling_offsets(query_aug).reshape(
             B, Q, H, nq, L, P, 2)
         attn = self.attention_weights(query_aug).reshape(B, Q, H, nq, L * P)

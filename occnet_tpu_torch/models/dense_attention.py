@@ -72,11 +72,15 @@ class DenseTemporalSelfAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, prev_bev: Optional[torch.Tensor],
                 query_pos: Optional[torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """query (B, Q, C), prev_bev (B, 2, Q, C) or None -> (B, Q, C)."""
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
+        """query (B, Q, C), prev_bev (B, 2, Q, C) or None -> (B, Q, C).
+        With ``shard`` (a `parallel.qshard.QShard`) the Q queries are its
+        block of whole BEV rows, and the taps reach the neighbours' rows
+        through its halo exchange."""
         B, Q, C = query.shape
         H, nq, T = self.num_heads, self.nq, len(TSA_TAPS)
-        bh, bw = self.bev_hw
+        bw = self.bev_hw[1]
         identity = query
         value = (torch.stack([query, query], dim=1) if prev_bev is None
                  else prev_bev)
@@ -86,10 +90,12 @@ class DenseTemporalSelfAttention(nn.Module):
         value = self.value_proj(value)
         attn = self.attention_weights(query_aug).reshape(B, Q, H, nq, T)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
-        vgrid = value.reshape(B, nq, bh, bw, C)
-        # (B, Q, H, nq, T) -> (B, bh, bw, nq, T, H), the tap op's layout
-        attn6 = attn.permute(0, 1, 3, 4, 2).reshape(B, bh, bw, nq, T, H)
-        out = tap_attention(vgrid.contiguous(), attn6.contiguous())
+        vgrid = value.reshape(B, nq, Q // bw, bw, C).contiguous()
+        # (B, Q, H, nq, T) -> (B, rows, bw, nq, T, H), the tap op's layout
+        attn6 = attn.permute(0, 1, 3, 4, 2).reshape(B, Q // bw, bw, nq, T,
+                                                    H).contiguous()
+        out = (tap_attention(vgrid, attn6) if shard is None
+               else shard.halo_tap(vgrid, attn6))
         out = out.reshape(B, Q, C).to(self.dtype)
         out = dropout(self.output_proj(out), self.dropout, train, generator)
         return out + identity

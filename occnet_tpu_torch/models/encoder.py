@@ -82,15 +82,16 @@ class BEVFormerLayer(nn.Module):
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 bev_pos: torch.Tensor, prev_bev: Optional[torch.Tensor],
                 geometry: Optional[tuple] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, shard=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Dense: value is the lift (B, L, Z, Q, C).  Gather: value is the
         camera pyramid (B, cams, V, C) and ``geometry`` holds (hybrid_ref_2d,
-        ref_cam, bev_mask, bev_hw, img_spatial_shapes).  Returns the query
-        and the SCA certificate (None in dense mode)."""
+        ref_cam, bev_mask, bev_hw, img_spatial_shapes).  ``shard`` goes to
+        both attentions (`BEVFormerEncoder.forward`).  Returns the query and
+        the SCA certificate (None in dense mode)."""
         if self.mode == "dense":
             query = self.norm1(self.self_attn(query, prev_bev, bev_pos, train,
-                                              generator))
+                                              generator, shard))
             query = self.norm2(self.cross_attn(query, value, None, train,
                                                generator))
             overflow = None
@@ -98,10 +99,10 @@ class BEVFormerLayer(nn.Module):
             ref_2d, ref_cam, bev_mask, bev_hw, shapes = geometry
             query = self.norm1(self.self_attn(query, prev_bev, bev_pos,
                                               ref_2d, [bev_hw], train,
-                                              generator))
+                                              generator, shard))
             query, overflow = self.cross_attn(query, value, None, ref_cam,
                                               bev_mask, shapes, train,
-                                              generator)
+                                              generator, shard)
             query = self.norm2(query)
         return self.norm3(self.ffn(query, train, generator)), overflow
 
@@ -136,19 +137,23 @@ class BEVFormerEncoder(nn.Module):
 
     def gather_geometry(self, B: int, ego2img: torch.Tensor,
                         img_spatial_shapes: Sequence[Tuple[int, int]],
-                        shift_ref_2d: Optional[torch.Tensor] = None
-                        ) -> tuple:
+                        shift_ref_2d: Optional[torch.Tensor] = None,
+                        shard=None) -> tuple:
         """The layer-invariant geometry of gather mode: TSA's hybrid
         reference [shift_ref_2d, ref_2d] (B, 2, Q, 1, 2), the prev slot's
         points shifted when ``shift_ref_2d`` (broadcastable to (B, Q, 1, 2))
         is given, and the pillar anchors' camera projection (ref_cam,
-        bev_mask), computed once per forward."""
-        ref_2d = self.ref_2d[None].expand(B, *self.ref_2d.shape)
+        bev_mask), computed once per forward; with ``shard``, for its
+        queries alone (``shift_ref_2d`` already cut to them)."""
+        ref_2d, ref_3d = self.ref_2d, self.ref_3d
+        if shard is not None:
+            ref_2d, ref_3d = shard.slice_q(ref_2d, 0), shard.slice_q(ref_3d)
+        ref_2d = ref_2d[None].expand(B, *ref_2d.shape)
         shifted = (ref_2d if shift_ref_2d is None
-                   else shift_ref_2d.float().expand(B, *self.ref_2d.shape))
+                   else shift_ref_2d.float().expand(ref_2d.shape))
         hybrid = torch.stack([shifted, ref_2d], dim=1)
         ref_cam, bev_mask = project_bev_points_to_cameras(
-            self.ref_3d, self.pc_range, ego2img, self.img_hw)
+            ref_3d, self.pc_range, ego2img, self.img_hw)
         return (hybrid, ref_cam, bev_mask, self.bev_hw,
                 tuple(img_spatial_shapes))
 
@@ -158,7 +163,8 @@ class BEVFormerEncoder(nn.Module):
                 prev_bev: Optional[torch.Tensor] = None,
                 shift_ref_2d: Optional[torch.Tensor] = None,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                shard=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """bev_query/bev_pos (B, Q, C); value the lift (B, L, Z, Q, C) in
         dense mode, the flattened camera pyramid (B, cams, V, C) with
@@ -168,11 +174,25 @@ class BEVFormerEncoder(nn.Module):
         points (gather mode only).  Dropout in training draws its masks
         from ``generator``.  Returns (bev (B, Q, C), sca_topk_overflow
         summed over the layers as the JAX inference entry sums the sown
-        values; None in dense mode)."""
+        values; None in dense mode).
+
+        With ``shard`` (a `parallel.qshard.QShard`, the JAX package's
+        ``shard_q``) the encoder runs on the shard's block of BEV rows:
+        bev_query, bev_pos, prev_bev and shift_ref_2d are the whole BEV's
+        and are cut to the block here, a dense value is the row-range
+        lift of the block (`lift_and_average(rows=...)`), the dropout
+        masks are the unsharded ones' rows, and the result is the block's
+        rows (B, Q / mp, C)."""
+        if shard is not None:
+            bev_query, bev_pos, prev_bev, shift_ref_2d = (
+                shard.slice_q(t) for t in (bev_query, bev_pos, prev_bev,
+                                           shift_ref_2d))
+            generator = shard.draws(generator)
         geometry = None
         if self.cfg.mode == "gather":
             geometry = self.gather_geometry(bev_query.shape[0], ego2img,
-                                            img_spatial_shapes, shift_ref_2d)
+                                            img_spatial_shapes, shift_ref_2d,
+                                            shard)
         prev_queue = None
         if prev_bev is not None:
             prev_queue = torch.stack([prev_bev.to(bev_query.dtype),
@@ -181,7 +201,7 @@ class BEVFormerEncoder(nn.Module):
         for lid in range(self.num_layers):
             bev_query, overflow = getattr(self, f"layer{lid}")(
                 bev_query, value, bev_pos, prev_queue, geometry, train,
-                generator)
+                generator, shard)
             if overflow is not None:
                 total = overflow if total is None else total + overflow
         return bev_query, total

@@ -13,7 +13,8 @@ import torch.nn as nn
 from occnet_tpu_torch.config import FLOW_CLASS_NAMES, LossConfig, ModelConfig
 from occnet_tpu_torch.models.positional import LearnedPositionalEncoding2D
 from occnet_tpu_torch.models.transformer_occ import TransformerOcc
-from occnet_tpu_torch.parallel.multihost import all_reduce_, world_size
+from occnet_tpu_torch.parallel.mesh import data_axis
+from occnet_tpu_torch.parallel.multihost import all_reduce_
 
 
 class OccHead(nn.Module):
@@ -68,19 +69,20 @@ def occ_flow_loss(occ_logits: torch.Tensor, flow_pred: torch.Tensor,
     voxels in a weighted flow mean; ``use_mask`` with a camera mask masks
     both terms.  Returns (loss_occ, loss_flow).
 
-    Under a process group of N > 1 ranks each rank holds 1 / N of the global
-    batch, and the JAX step's losses are means over the global batch: the
-    weighted and masked means divide by the all-reduced weight sum, and
-    every term is returned as this rank's share scaled so that the average
-    over ranks (the data-parallel gradient average) is the global mean.
+    Under a process group of N > 1 data ranks (`parallel.mesh.data_axis`)
+    each holds 1 / N of the global batch, and the JAX step's losses are
+    means over the global batch: the weighted and masked means divide by
+    the all-reduced weight sum, and every term is returned as this rank's
+    share scaled so that the average over the data ranks (the data-parallel
+    gradient average) is the global mean.
     The plain means have equal counts on every rank and need no
     collective.  At world size 1 the arithmetic is unchanged: the
     all-reduce is the identity, ``num * 1`` is exact and the weight sums
     carry no gradient."""
-    world = world_size()
+    group, world = data_axis()
 
     def weighted_mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-        return num * world / all_reduce_(den.detach().clone()).clamp(
+        return num * world / all_reduce_(den.detach().clone(), group).clamp(
             min=1e-6)
 
     num_classes = occ_logits.shape[-1]

@@ -7,7 +7,7 @@ cast to the compute dtype at use, like a flax `Dense`/`Conv` built with
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -58,15 +58,33 @@ class Conv3d(nn.Conv3d):
         return F.conv3d(x.to(dt), self.weight.to(dt), None, 1, 1)
 
 
+class RowDraws(NamedTuple):
+    """A generator whose dropout masks are drawn for all ``total`` query
+    rows (dim 1) and cut to [start, stop): a BEV-query shard's masks are
+    then the unsharded step's rows, and the generator advances as it does
+    there (`parallel.qshard`)."""
+    generator: Optional[torch.Generator]
+    start: int
+    stop: int
+    total: int
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Union[torch.Generator, RowDraws, None]
+            ) -> torch.Tensor:
     """flax `nn.Dropout`: in training keep each element with probability
     1 - rate and scale it by 1 / (1 - rate); the mask is drawn from
-    ``generator`` (on x's device), so a train step's masks follow its seed.
-    Identity outside training or at rate 0."""
+    ``generator`` (on x's device), so a train step's masks follow its seed;
+    a `RowDraws` draws the whole rows and keeps its own.  Identity outside
+    training or at rate 0."""
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
+    if isinstance(generator, RowDraws):
+        shape = (x.shape[0], generator.total) + tuple(x.shape[2:])
+        u = torch.rand(shape, generator=generator.generator,
+                       device=x.device)[:, generator.start:generator.stop]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))

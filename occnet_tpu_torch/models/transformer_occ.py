@@ -18,7 +18,9 @@ from occnet_tpu_torch.config import ModelConfig
 from occnet_tpu_torch.models.encoder import BEVFormerEncoder
 from occnet_tpu_torch.models.layers import Conv3d, Linear
 from occnet_tpu_torch.ops.planar_lift import lift_and_average
-from occnet_tpu_torch.parallel.multihost import all_reduce_sum, world_size
+from occnet_tpu_torch.parallel.mesh import data_axis
+from occnet_tpu_torch.parallel.multihost import all_reduce_sum
+from occnet_tpu_torch.parallel.qshard import active_qshard
 
 
 class BatchNorm3d(nn.Module):
@@ -30,8 +32,10 @@ class BatchNorm3d(nn.Module):
 
     Under a process group of more than one rank the batch is the global
     one, as under the JAX package's jit over the data axis: one
-    differentiable all-reduce of [sum x, sum x^2, count] per call.  At
-    world size 1 the arithmetic is the single-process one, bit for bit."""
+    differentiable all-reduce of [sum x, sum x^2, count] per call over the
+    data axis (`parallel.mesh.data_axis`; the model ranks of a sample hold
+    the whole BEV here).  On one data rank the arithmetic is the
+    single-process one, bit for bit."""
 
     momentum = 0.9
 
@@ -48,11 +52,12 @@ class BatchNorm3d(nn.Module):
         xf = x.float()
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
-            if world_size() > 1:
+            group, n = data_axis()
+            if n > 1:
                 count = xf.new_full((1, x.shape[1]), x.numel() // x.shape[1])
                 s = all_reduce_sum(torch.cat([
                     xf.sum(dim=dims)[None], (xf * xf).sum(dim=dims)[None],
-                    count]))
+                    count]), group)
                 mean = s[0] / s[2]
                 var = (s[1] / s[2] - mean * mean).clamp(min=0.0)
             else:
@@ -156,23 +161,37 @@ class TransformerOcc(nn.Module):
         with the channel-linear lift), the lift, then the encoder.  Gather:
         the flattened pyramid into the encoder.  ``prev_bev`` /
         ``shift_ref_2d`` go to the encoder's TSA.  -> ((B, Q, C),
-        sca_topk_overflow or None)."""
+        sca_topk_overflow or None).
+
+        Under a layout that shards the BEV queries (`parallel.qshard.
+        active_qshard`: a train step at mp > 1 with ``bev_shard_axis =
+        "model"``) the encoder runs on this rank's block of rows (the lift
+        on those rows alone) and its output is gathered over the model
+        group once: every rank returns the whole BEV."""
         c = self.cfg
         b = mlvl_feats[0].shape[0]
+        shard = active_qshard(c)
         queries = bev_queries[None].expand(b, *bev_queries.shape).to(
             self.dtype)
         if c.encoder.mode == "gather":
             value, shapes = self.flatten_mlvl_feats(mlvl_feats)
-            return self.encoder(queries, value, bev_pos, ego2img, shapes,
-                                prev_bev, shift_ref_2d, train, generator)
-        feats = [self.shared_value_proj(f)
-                 for f in self.flat_embed(mlvl_feats)]
-        lifted, _count = lift_and_average(
-            feats, ego2img, c.pc_range, c.encoder.num_points_in_pillar,
-            (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype)
-        return self.encoder(queries, lifted, bev_pos, prev_bev=prev_bev,
-                            shift_ref_2d=shift_ref_2d, train=train,
-                            generator=generator)
+            bev, overflow = self.encoder(
+                queries, value, bev_pos, ego2img, shapes, prev_bev,
+                shift_ref_2d, train, generator, shard)
+        else:
+            feats = [self.shared_value_proj(f)
+                     for f in self.flat_embed(mlvl_feats)]
+            lifted, _count = lift_and_average(
+                feats, ego2img, c.pc_range, c.encoder.num_points_in_pillar,
+                (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype,
+                rows=None if shard is None else shard.rows)
+            bev, overflow = self.encoder(
+                queries, lifted, bev_pos, prev_bev=prev_bev,
+                shift_ref_2d=shift_ref_2d, train=train, generator=generator,
+                shard=shard)
+        if shard is not None:
+            bev = shard.gather(bev)
+        return bev, overflow
 
     def decode_voxels(self, bev_embed: torch.Tensor, train: bool = False
                       ) -> torch.Tensor:

@@ -15,7 +15,7 @@ its gradient `lift_cuda.lift_level_bwd`, tied together by `_LiftAverage`.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,25 +80,30 @@ def feature_homographies(H: torch.Tensor, h: int, w: int,
 
 
 def level_geometry(Ml: torch.Tensor, bev_hw: Tuple[int, int], h: int, w: int,
-                   eps: float = 1e-4):
+                   eps: float = 1e-4,
+                   rows: Optional[Tuple[int, int]] = None):
     """Sampling positions of one feature level.  Ml (B, A, Z, 3, 3)
-    BEV-cell -> feature-pixel homographies.
+    BEV-cell -> feature-pixel homographies; ``rows`` = (r0, r1) restricts
+    them to the BEV rows [r0, r1) (R = r1 - r0 rows; default all bev_h),
+    each row's values those of the whole grid's.
 
     Returns
-      pos1  (B, A, Z*bev_h, w + h) f32: pass-1 position of every image-line
+      pos1  (B, A, Z*R, w + h) f32: pass-1 position of every image-line
             tap, band-limited; [..., :w] order A (image y at column x),
             [..., w:] order B (image x at row y);
-      pos2  (B, A, Z*bev_h, bev_w) f32: pass-2 position along the line
+      pos2  (B, A, Z*R, bev_w) f32: pass-2 position along the line
             (xf in order A, yf in order B), -2 where the cell is invisible;
-      steep (B, A, Z*bev_h) bool: the row uses order B;
-      valid (B, A, Z, bev_h, bev_w) bool: the cell projects into the level.
+      steep (B, A, Z*R) bool: the row uses order B;
+      valid (B, A, Z, R, bev_w) bool: the cell projects into the level.
     """
     bev_h, bev_w = bev_hw
+    r0, r1 = (0, bev_h) if rows is None else rows
+    bev_h = r1 - r0
     B, A, Z = Ml.shape[:3]
     dev = Ml.device
     f32 = torch.float32
     ix = torch.arange(bev_w, dtype=f32, device=dev)
-    iy = torch.arange(bev_h, dtype=f32, device=dev)
+    iy = torch.arange(r0, r1, dtype=f32, device=dev)
     xs = torch.arange(w, dtype=f32, device=dev)
     ygrid = torch.arange(h, dtype=f32, device=dev)
     m = Ml[..., None, None]                     # (B, A, Z, 3, 3, 1, 1)
@@ -199,16 +204,22 @@ def lift_and_average(
     img_hw: Tuple[int, int],
     out_dtype: torch.dtype = torch.bfloat16,
     impl: str = "auto",
+    rows: Optional[Tuple[int, int]] = None,
 ):
     """Lift + camera-average: U_bar[b,l,z,q] = sum_cam U / count[b,q], with
     count = #cameras where any z-anchor of query q is visible at level 0
     (clamped to >= 1) — the reference SCA's scatter-add + count
     normalisation.  Returns (U_bar (B, L, Z, Q, C) out_dtype, count (B, Q)
     f32).  ``impl`` is passed to `lift_level` ("auto": kernel on CUDA).
-    Differentiable in the features (bf16 gradient, as in the JAX package)."""
+    ``rows`` = (r0, r1) lifts the BEV rows [r0, r1) alone (Q = (r1 - r0) *
+    bev_w queries, the whole lift's queries r0 * bev_w .. r1 * bev_w - 1,
+    bit for bit: a BEV-query shard's, as the JAX package shards the lift's
+    Q axis).  Differentiable in the features (bf16 gradient, as in the JAX
+    package)."""
     dev = ego2img.device
     bev_h, bev_w = bev_hw
-    Q = bev_h * bev_w
+    r0, r1 = (0, bev_h) if rows is None else rows
+    Q = (r1 - r0) * bev_w
     B = ego2img.shape[0]
     C = mlvl_feats[0].shape[-1]
     z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
@@ -218,7 +229,8 @@ def lift_and_average(
     for lvl, feat in enumerate(mlvl_feats):
         h, w = feat.shape[2], feat.shape[3]
         Ml = feature_homographies(H, h, w, img_hw)
-        pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w)
+        pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w,
+                                                  rows=(r0, r1))
         if lvl == 0:
             count = valid.any(dim=2).sum(dim=1).to(torch.float32)
             count = count.clamp(min=1.0).reshape(B, Q)

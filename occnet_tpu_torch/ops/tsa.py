@@ -158,21 +158,34 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"tap attention: no implementation for {t.device}")
 
 
+def tap_attention_fwd(vgrid: torch.Tensor, attn: torch.Tensor
+                      ) -> torch.Tensor:
+    """The forward without autograd: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if _on_cuda(vgrid):
+        return tap_attention_cuda(vgrid, attn)
+    return tap_attention_plain(vgrid, attn)
+
+
+def tap_attention_bwd(vgrid: torch.Tensor, attn: torch.Tensor,
+                      g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward (dv, dattn) for the fp32 gradient ``g``: the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    g = g.float().contiguous()
+    if _on_cuda(vgrid):
+        return tap_attention_bwd_cuda(vgrid, attn, g)
+    return tap_attention_bwd_plain(vgrid, attn, g)
+
+
 class _TapAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vgrid, attn):
         ctx.save_for_backward(vgrid, attn)
-        if _on_cuda(vgrid):
-            return tap_attention_cuda(vgrid, attn)
-        return tap_attention_plain(vgrid, attn)
+        return tap_attention_fwd(vgrid, attn)
 
     @staticmethod
     def backward(ctx, g):
-        vgrid, attn = ctx.saved_tensors
-        g = g.float().contiguous()
-        if _on_cuda(vgrid):
-            return tap_attention_bwd_cuda(vgrid, attn, g)
-        return tap_attention_bwd_plain(vgrid, attn, g)
+        return tap_attention_bwd(*ctx.saved_tensors, g)
 
 
 def tap_attention(vgrid: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,9 @@ and the collectives below make the step global:
 - `all_reduce_sum()` is a differentiable all-reduce (its backward
   all-reduces the gradient), for the global batch statistics of the
   norms; `all_reduce_()` and `all_reduce_mean_()` reduce in place without
-  autograd, for loss normalisers, metrics and gradients.
+  autograd, for loss normalisers, metrics and gradients.  Each takes a
+  ``group`` (default: the world), the data or model group of a
+  (data, model) layout (`parallel.mesh`).
 
 With no process group, or at world size 1, every function here is the
 identity, so single-process arithmetic is unchanged.
@@ -173,55 +175,67 @@ def barrier(name: str = "barrier") -> None:
         dist.barrier()
 
 
+def group_size(group=None) -> int:
+    """The number of ranks of ``group`` (None: the whole world); 1 without
+    a process group."""
+    return dist.get_world_size(group) if is_initialized() else 1
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks whose backward sums the incoming gradient over ranks:
-    each rank's loss depends on the sum through every rank's share, so the
-    gradient of the sum of the ranks' losses with respect to one rank's
-    input is the sum of their gradients."""
+    """Sum over a group's ranks whose backward sums the incoming gradient
+    over them: each rank's loss depends on the sum through every rank's
+    share, so the gradient of the sum of the ranks' losses with respect to
+    one rank's input is the sum of their gradients."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of ``x`` over the ranks (``x`` itself at world
-    size 1)."""
-    if world_size() == 1:
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``group`` (None: the
+    world); ``x`` itself on one rank."""
+    if group_size(group) == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
-def all_reduce_(x: torch.Tensor) -> torch.Tensor:
-    """In-place sum of ``x`` over the ranks, outside autograd; returns x."""
-    if world_size() > 1:
-        dist.all_reduce(x)
+def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum of ``x`` over the ranks of ``group``, outside autograd;
+    returns x."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, group=group)
     return x
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average each tensor over the ranks in place with one all-reduce per
-    dtype (a flat buffer of all of them): the gradient average of
-    data-parallel training."""
-    world = world_size()
-    if world == 1:
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None,
+                     divisor: Optional[int] = None) -> None:
+    """Sum each tensor over the ranks of ``group`` in place and divide it by
+    ``divisor`` (default: the group's size) with one all-reduce per dtype
+    (a flat buffer of all of them): the gradient average of data-parallel
+    training."""
+    world = group_size(group)
+    divisor = world if divisor is None else divisor
+    if world == 1 and divisor == 1:
         return
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
-        flat.div_(world)
-        for t, part in zip(group, flat.split([t.numel() for t in group])):
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        if world > 1:
+            dist.all_reduce(flat, group=group)
+        flat.div_(divisor)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(part.view_as(t))
 
 

@@ -1,11 +1,16 @@
 #!/usr/bin/env bash
-# Data-parallel training launcher of the port: torchrun around the train
-# CLI, one rank a device (the reference's tools/dist_train.sh).
+# Training launcher of the port: torchrun around the train CLI, one rank a
+# device (the reference's tools/dist_train.sh).
 #
 #   occnet_tpu_torch/tools/dist_train.sh <config> <num_ranks> [train args...]
 #
 # e.g.  occnet_tpu_torch/tools/dist_train.sh turbo_occ 8 \
 #           --set data.data_root=/data/nuscenes/
+#       occnet_tpu_torch/tools/dist_train.sh turbo_occ 8 \
+#           --set data.data_root=/data/nuscenes/ parallel.mp=2 \
+#           model.bev_shard_axis=model
+# (the second lays the 8 ranks out as dp = 4 x mp = 2 and shards each
+# encoder's BEV rows over the model pairs).
 #
 # The ranks use NCCL, one card each; pass --dist-backend gloo for ranks on
 # the CPU (with --device cpu) or sharing a card.  torchrun's exit code is

@@ -78,8 +78,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from occnet_tpu_torch.training.eval_loop import (COUNT_KEYS,
+                                                 merge_frame_counts)
+
 FLUSH = 32          # frames whose metric counts are fetched at once
-COUNT_KEYS = ("gt_cnt", "pred_cnt", "tp_cnt", "ave_sum", "ave_cnt")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -389,21 +391,8 @@ def _run(args, device: torch.device,
                "per_cam_topk": per_cam_topk, "dcn_radii": dcn_radii,
                "load_ms": load_ms}
     if args.eval:
-        # every rank's frame counts (the reference's collect_results_cpu
-        # without its tmpdir pickles), zero-padded to the shard length and
-        # given a rank axis (allgather_host adds none on one process)
-        rows = max(shard_len, 1)
-        zero = {k: np.zeros_like(getattr(acc, k)) for k in COUNT_KEYS}
-        g = allgather_host({
-            "n": np.int64(len(frame_counts)),
-            **{k: np.stack([f[k] for f in frame_counts] + [zero[k]] * (
-                rows - len(frame_counts))) for k in COUNT_KEYS}})
-        n_of = np.reshape(g["n"], world)
-        g = {k: np.reshape(g[k], (world, rows) + zero[k].shape)
-             for k in COUNT_KEYS}
-        for r in range(world):
-            for i in range(int(n_of[r])):
-                acc.update_counts({k: g[k][r, i] for k in COUNT_KEYS})
+        # every rank's frame counts, zero-padded to the shard length
+        merge_frame_counts(acc, frame_counts, shard_len, world, range(world))
         summary["counts"] = {k: np.asarray(getattr(acc, k))
                              for k in COUNT_KEYS + ("num_samples",)}
         metrics = acc.finalize()

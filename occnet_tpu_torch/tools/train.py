@@ -17,8 +17,8 @@ CUDA device the CLI exits and names that flag.  Config selection and dotted
 JAX package's initialisers from ``--seed``; ``--backbone-checkpoint`` loads
 a torchvision ResNet state_dict into the backbone
 (`utils.torch_convert.load_resnet_into_state_dict`, conv1 flipped to RGB).
-``--autoscale-lr`` scales the learning rate by the data-parallel size (the
-world size) over the reference's 8 GPUs.  Three data sources:
+``--autoscale-lr`` scales the learning rate by the data-parallel size (dp)
+over the reference's 8 GPUs.  Three data sources:
 
 - by default the nuScenes / OpenOcc train split of ``data.data_root``
   (`data.nuscenes.build_train_dataset`: ``data.train_ann``, plus
@@ -61,16 +61,22 @@ the device and checked at every log: a nonzero sum aborts the run.
 into ``<work-dir>/trace`` (a Chrome trace a rank).  Returns the logged
 metrics, evaluations included.
 
-``--distributed`` trains data-parallel over the ranks of a launcher
-(`torchrun`, `tools/dist_train.sh`; without its environment the run is one
-process): each rank holds one device and ``data.batch_size_per_device``
-samples, loads its `data.sampler.shuffled_shard_indices` shard of each
-epoch, and takes the global step (`training.train` describes how); an
-epoch is frames // (world x batch) steps.  ``--dist-backend`` picks NCCL
-(the default on the card: one card a rank) or gloo (the CPU, or ranks
-sharing a card).  Rank 0 logs, writes the events and the checkpoints;
-every rank runs the eval hook, as the JAX CLI does, and rank 0 writes its
-scores.
+``--distributed`` trains over the ranks of a launcher (`torchrun`,
+`tools/dist_train.sh`; without its environment the run is one process),
+laid out as a (data, model) mesh of ``parallel.dp`` x ``parallel.mp``
+ranks (`parallel.mesh`; dp = -1 takes world // mp): each rank holds one
+device, each data rank ``data.batch_size_per_device`` samples, loaded
+from its `data.sampler.shuffled_shard_indices` shard of each epoch, and
+every rank takes the global step (`training.train` describes how); an
+epoch is frames // (dp x batch) steps.  ``--set parallel.mp=2
+model.bev_shard_axis=model`` shards the encoder's BEV queries over the
+model axis (``bev_shard_axis=''`` replicates it); a world that is not
+dp x mp, a ``bev_h`` that mp does not divide or an unknown axis raises.
+``--dist-backend`` picks NCCL (the default on the card: one card a rank)
+or gloo (the CPU, or ranks sharing a card).  Rank 0 logs, writes the
+events and the checkpoints; every rank runs the eval hook with the
+unsharded model, the frames split over the data ranks, and rank 0 writes
+the scores.
 """
 
 from __future__ import annotations
@@ -224,7 +230,7 @@ def _train(args, device: torch.device):
     from occnet_tpu_torch.data.loader import PrefetchLoader
     from occnet_tpu_torch.data.sampler import shuffled_shard_indices
     from occnet_tpu_torch.parallel import process_shard, shard_batch
-    from occnet_tpu_torch.parallel.mesh import make_mesh
+    from occnet_tpu_torch.parallel.mesh import check_layout, make_mesh
     from occnet_tpu_torch.parallel.multihost import broadcast_module
     from occnet_tpu_torch.serve import Predictor
     from occnet_tpu_torch.training import checkpoint, eval_loop
@@ -257,7 +263,13 @@ def _train(args, device: torch.device):
              f"; rank 0 of {world}" if world > 1 else "")
     log.info("config: %s", cfg)
 
-    n_dp = make_mesh(cfg.parallel.dp, cfg.parallel.mp)
+    mesh = make_mesh(cfg.parallel.dp, cfg.parallel.mp)
+    sharded = check_layout(cfg.model, mesh)
+    n_dp = mesh.dp
+    if mesh.mp > 1:
+        log.info("mesh: dp=%d x mp=%d, BEV queries %s", mesh.dp, mesh.mp,
+                 "sharded over the model axis" if sharded
+                 else "replicated (bev_shard_axis='')")
     batch_size = cfg.data.batch_size_per_device
     global_batch = batch_size * n_dp
     if args.autoscale_lr:
@@ -326,7 +338,7 @@ def _train(args, device: torch.device):
     else:
         # the global batch from the seed; each rank takes its part
         batch = to_device(shard_batch(make_synthetic_batch(
-            cfg, global_batch, np.random.RandomState(args.seed)), n_dp),
+            cfg, global_batch, np.random.RandomState(args.seed)), mesh),
             device)
     t0 = time.time()
     sd = from_jax_variables(init_jax_style_variables(cfg, seed=args.seed))
@@ -364,7 +376,7 @@ def _train(args, device: torch.device):
     broadcast_module(state.model)
 
     step_fn = (make_temporal_train_step if temporal else make_train_step)(
-        cfg, seed=args.seed)
+        cfg, seed=args.seed, mesh=mesh)
     total_steps = cfg.optim.total_epochs * cfg.optim.steps_per_epoch
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)
@@ -393,8 +405,9 @@ def _train(args, device: torch.device):
                 if epoch != loader_epoch:
                     # this rank's shard of the epoch's permutation (the
                     # reference's DistributedGroupSampler)
-                    order = shuffled_shard_indices(len(dataset), world, rank,
-                                                   epoch, cfg.seed)
+                    order = shuffled_shard_indices(
+                        len(dataset), mesh.dp, mesh.data_rank, epoch,
+                        cfg.seed)
                     skip = (step % epoch_len) * batch_size
                     loader_iter = iter(PrefetchLoader(
                         dataset, batch_size, order[skip:], seed=cfg.seed,
@@ -450,7 +463,7 @@ def _train(args, device: torch.device):
                     and (epoch_now + 1) % interval == 0):
                 scores = eval_loop.run_evaluation(
                     cfg, Predictor.wrap(cfg, state.model), val_dataset,
-                    log=log.info)
+                    log=log.info, mesh=mesh if world > 1 else None)
                 if events is not None:
                     events.write(step + 1, tag="eval", **scores)
                 history.append({"step": step + 1, "tag": "eval", **scores})

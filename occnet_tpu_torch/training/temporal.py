@@ -40,9 +40,12 @@ from occnet_tpu_torch.training.train import (
     TrainState,
     apply_gradients,
     global_metrics,
+    backward,
     make_lr_schedule,
     step_generators,
+    step_layout,
 )
+from occnet_tpu_torch.parallel.mesh import Mesh, active
 
 
 def ego_deltas_from_poses(ego2global_prev: np.ndarray,
@@ -121,7 +124,8 @@ def make_history_bev_fn(cfg: OccNetConfig):
     return history
 
 
-def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
+def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0,
+                             mesh: Optional[Mesh] = None):
     """Returns ``train_step(state, batch, mark=None) -> metrics``, the clip
     step of the video runner: the history BEV of frames 0..T-2 (no grad),
     then `training.train.make_train_step`'s step on frame T-1 with that
@@ -139,22 +143,29 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
     run in inference mode and without gradients, so they need no
     collective.  ``mark(name)`` is called after the "history", "forward",
     "backward" and "optimizer" phases (and the gradient "allreduce" under
-    a process group)."""
+    a process group).  ``mesh`` as in `make_train_step`: with sharded BEV
+    queries the history frames run sharded too (each rank gets the whole
+    history BEV back) and the supervised frame takes the sharded step."""
     m = cfg.model
     schedule = make_lr_schedule(cfg)
     augment = make_device_train_augmenter(
         cfg.data, distort=cfg.data.device_distortion)
     history = make_history_bev_fn(cfg)
+    mesh, sharded = step_layout(cfg, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
+        with active(mesh):
+            return _step(state, batch, mark)
+
+    def _step(state, batch, mark):
         ego2img = batch["ego2img"]
         dev = ego2img.device
         t = ego2img.shape[1]
         if t < 2:
             raise ValueError(f"a clip step needs T >= 2 frames, got {t}")
-        gen, drop, rank, world = step_generators(seed, state.step, dev)
+        gen, drop, rank, world = step_generators(seed, state.step, dev, mesh)
         img = augment(gen, batch["img"], (rank, world))
         prev_bev, cert = history(
             state.model, img[:, :-1], ego2img[:, :-1],
@@ -178,10 +189,11 @@ def make_temporal_train_step(cfg: OccNetConfig, seed: int = 0):
         if mark:
             mark("forward")
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        backward(loss, mesh, sharded)
         if mark:
             mark("backward")
-        grad_norm, lr = apply_gradients(state, cfg, schedule, mark)
+        grad_norm, lr = apply_gradients(state, cfg, schedule, mark, mesh,
+                                        sharded)
         if mark:
             mark("optimizer")
         state.step += 1

@@ -42,6 +42,26 @@ order of floating-point sums.  Four places make it so:
    forwards run without gradients, two cases DDP's reducer must be told
    about, and the step needs the global gradient only at one point.
 
+The model axis (`parallel.mesh`: dp x mp ranks, rank r at data rank
+r // mp and model rank r % mp).  The rules above hold over the data axis
+(the data group, `parallel.mesh.data_axis`): the model ranks of a data
+rank hold the same samples and draw the same grid mask, distortion and
+dropout streams.  With ``model.bev_shard_axis = ""`` the model axis is
+replicated, as in the JAX dry run's ``tiny_occ`` step: each model rank
+takes the unsharded step and the gradients are averaged over the data
+group.  With ``"model"`` the encoder's BEV queries are sharded over the
+model group (`parallel.qshard`: a block of BEV rows a rank, the lift on
+those rows, the halo'd tap attention or the gathered TSA value, the
+global SCA certificate), its output is gathered once, and the decoder,
+the heads and the loss run replicated on every model rank.  The gradient
+rule that gives every rank the unsharded step's gradient: each model rank
+backpropagates L / mp of the replicated loss L, the BEV gather's
+backward is a reduce-scatter sum, and after the backward every gradient
+is summed over the world and divided by dp.  Decoder and head leaves so
+get mp * (1 / mp) * dL, and the encoder, trunk, query and embedding leaves
+the sum of the model ranks' partial contributions.  The reported loss is
+L, unscaled.
+
 Every named config trains: the dense and gather encoders, plain and DCN
 trunks (their backward kernels behind the autograd Functions of
 `ops/planar_lift`, `ops/tsa`, `ops/msda` and `ops/deform_conv`).
@@ -59,10 +79,17 @@ from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.data.pipeline import make_device_train_augmenter
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.models.head import occ_flow_loss
+from occnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    active,
+    check_layout,
+    data_axis,
+    make_mesh,
+)
 from occnet_tpu_torch.parallel.multihost import (
     all_reduce_,
     all_reduce_mean_,
-    process_shard,
+    group_size,
     world_size,
 )
 
@@ -154,20 +181,28 @@ def create_train_state(cfg: OccNetConfig, state_dict: Dict[str, torch.Tensor],
 
 def apply_gradients(state: TrainState, cfg: OccNetConfig,
                     schedule: Callable[[int], float],
-                    mark: Optional[Callable[[str], None]] = None):
+                    mark: Optional[Callable[[str], None]] = None,
+                    mesh: Optional[Mesh] = None, sharded: bool = False):
     """The optimizer half of a step on the ``.grad`` already in place:
     zero gradients for unused trainable leaves (optax still decays them),
-    under a process group the gradient average over the ranks (then
+    under a process group the gradient reduction (then
     ``mark("allreduce")``), global-norm clip, lr(step) * mult per group,
-    AdamW.  Returns (pre-clip grad norm tensor, lr).  Does not advance
-    ``state.step``."""
+    AdamW.  The reduction is the average over the ranks at mp = 1 (or
+    without ``mesh``), over the data group when the model axis is
+    replicated, and with ``sharded`` BEV queries the sum over every rank
+    divided by dp (see the module doc).  Returns (pre-clip grad norm
+    tensor, lr).  Does not advance ``state.step``."""
     opt = state.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    if world_size() > 1:
-        all_reduce_mean_([p.grad for p in params])
+    if mesh is None:
+        over, divisor = None, world_size()
+    else:
+        over, divisor = (None if sharded else mesh.data_group), mesh.dp
+    if group_size(over) > 1 or divisor > 1:
+        all_reduce_mean_([p.grad for p in params], over, divisor)
         if mark:
             mark("allreduce")
     grad_norm = clip_by_global_norm(params, cfg.optim.grad_clip_norm)
@@ -184,12 +219,13 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (seed * 1_000_003 + step) % 2 ** 63)
 
 
-def step_generators(seed: int, step: int, device
+def step_generators(seed: int, step: int, device, mesh: Mesh
                     ) -> Tuple[torch.Generator, torch.Generator, int, int]:
-    """(the step's generator, the dropout generator, rank, world size): the
-    dropout generator is the step's own at world size 1 and a generator of
-    (seed, step, rank) under a process group (see the module doc)."""
-    rank, world = process_shard()
+    """(the step's generator, the dropout generator, data rank, data-rank
+    count) of ``mesh``: the dropout generator is the step's own on one data
+    rank and a generator of (seed, step, data rank) over several (see the
+    module doc).  The model ranks of a data rank draw alike."""
+    rank, world = mesh.data_rank, mesh.dp
     gen = step_generator(seed, step, device)
     if world == 1:
         return gen, gen, rank, world
@@ -203,13 +239,15 @@ def global_metrics(loss: torch.Tensor, loss_occ: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
     """The logged losses (detached) and certificate sum over the global
-    batch: the ranks' loss shares averaged, the certificates summed
-    (int64); the local values at world size 1."""
+    batch: the data ranks' loss shares averaged, the certificates summed
+    (int64) over the data axis (`parallel.mesh.data_axis`: the model ranks
+    of a sample hold the same loss and certificates); the local values on
+    one data rank."""
     losses = torch.stack([loss, loss_occ, loss_flow]).detach()
-    world = world_size()
+    group, world = data_axis()
     if world > 1:
-        losses = all_reduce_(losses) / world
-        cert = all_reduce_(cert.clone())
+        losses = all_reduce_(losses, group) / world
+        cert = all_reduce_(cert.clone(), group)
     return losses[0], losses[1], losses[2], cert
 
 
@@ -223,7 +261,24 @@ def grad_checker(model: torch.nn.Module, threshold: float = 0.0
             if p.grad is None or float(p.grad.abs().max()) <= threshold]
 
 
-def make_train_step(cfg: OccNetConfig, seed: int = 0):
+def step_layout(cfg: OccNetConfig, mesh: Optional[Mesh]
+                ) -> Tuple[Mesh, bool]:
+    """(the layout of a step, whether it shards the BEV queries): ``mesh``
+    or `make_mesh(cfg.parallel.dp, cfg.parallel.mp)`, checked against the
+    model (`parallel.mesh.check_layout`)."""
+    if mesh is None:
+        mesh = make_mesh(cfg.parallel.dp, cfg.parallel.mp)
+    return mesh, check_layout(cfg.model, mesh)
+
+
+def backward(loss: torch.Tensor, mesh: Mesh, sharded: bool) -> None:
+    """``loss.backward()``; with sharded BEV queries every model rank holds
+    the whole loss, and each backpropagates loss / mp (module doc)."""
+    (loss / mesh.mp if sharded else loss).backward()
+
+
+def make_train_step(cfg: OccNetConfig, seed: int = 0,
+                    mesh: Optional[Mesh] = None):
     """Returns ``train_step(state, batch, mark=None) -> metrics``.
 
     ``batch`` holds ``img`` (B, cams, H, W, 3) uint8 (augmented on the
@@ -239,16 +294,28 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
     certificates are the global batch's (see the module doc).
     ``mark(name)``, when given, is called after the "forward", "backward"
     and "optimizer" phases (for timing), and under a process group after
-    the gradient "allreduce"."""
+    the gradient "allreduce".
+
+    ``mesh`` is the (data, model) layout of the ranks (default:
+    `make_mesh(cfg.parallel.dp, cfg.parallel.mp)`); ``batch`` is the data
+    rank's part of the global batch.  At mp > 1 with
+    ``model.bev_shard_axis = "model"`` the step shards the BEV queries over
+    the model group (module doc); an unknown axis or a ``bev_h`` that mp
+    does not divide raises."""
     schedule = make_lr_schedule(cfg)
     augment = make_device_train_augmenter(
         cfg.data, distort=cfg.data.device_distortion)
+    mesh, sharded = step_layout(cfg, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
+        with active(mesh):
+            return _step(state, batch, mark)
+
+    def _step(state, batch, mark):
         dev = batch["ego2img"].device
-        gen, drop, rank, world = step_generators(seed, state.step, dev)
+        gen, drop, rank, world = step_generators(seed, state.step, dev, mesh)
         img = augment(gen, batch["img"], (rank, world))
         outs = state.model(img, batch["ego2img"], train=True, generator=gen,
                            dropout_generator=drop)
@@ -260,10 +327,11 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0):
         if mark:
             mark("forward")
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        backward(loss, mesh, sharded)
         if mark:
             mark("backward")
-        grad_norm, lr = apply_gradients(state, cfg, schedule, mark)
+        grad_norm, lr = apply_gradients(state, cfg, schedule, mark, mesh,
+                                        sharded)
         if mark:
             mark("optimizer")
         state.step += 1

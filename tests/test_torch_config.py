@@ -97,6 +97,9 @@ def test_port_modules_import_without_the_jax_package():
         "parallel", "parallel.mesh", "parallel.multihost",
         "training.checkpoint", "utils.events", "utils.profiling", "entry",
         "tools.bench", "tools.step_noise")} <= mods, r.stdout
+    # and the model axis' and the soak report's
+    assert {f"occnet_tpu_torch.{m}" for m in (
+        "parallel.qshard", "tools.soak_report")} <= mods, r.stdout
     # and the VoVNet / detection / library slice's
     assert {f"occnet_tpu_torch.{m}" for m in (
         "models.vovnet", "models.decoder", "models.perception",

@@ -7,6 +7,7 @@ Chrome trace with an annotated region, `entry.example_batch` against
 `__graft_entry__._example_batch`, the dry run's device choice, and the
 checkpoint manager."""
 
+import dataclasses
 import json
 import os
 import socket
@@ -64,16 +65,53 @@ def test_no_launcher_is_one_process(monkeypatch):
 
 
 def test_mesh_is_the_data_axis():
-    assert parallel.make_mesh() == parallel.make_mesh(dp=1) == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """`make_mesh` gives the (data, model) layout: one process is dp = mp =
+    1 on the default group; mp > 1 without a process group, or a world
+    that is not dp x mp, raises; `check_layout` refuses an unknown
+    ``bev_shard_axis`` and, when it shards, a ``bev_h`` that mp does not
+    divide (the train step with it); `shard_batch` takes a data rank's
+    part."""
+    from occnet_tpu_torch.config import tiny_turbo_occ
+    from occnet_tpu_torch.parallel.mesh import Mesh, check_layout
+    mesh = parallel.make_mesh()
+    assert mesh == parallel.make_mesh(dp=1) == Mesh(1, 1, 0, 0)
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.data_group is None and mesh.model_group is None
+    with pytest.raises(RuntimeError, match="process group"):
         parallel.make_mesh(mp=2)
     with pytest.raises(ValueError, match="ranks"):
         parallel.make_mesh(dp=2)
+    _init_world1()
+    try:
+        with pytest.raises(ValueError, match="does not divide"):
+            parallel.make_mesh(mp=2)
+        with pytest.raises(ValueError, match="ranks"):
+            parallel.make_mesh(dp=1, mp=2)
+    finally:
+        dist.destroy_process_group()
+    cfg = tiny_turbo_occ()
+    m = cfg.model
+    two = Mesh(1, 2, 0, 0)
+    assert check_layout(m, two) is False               # replicated model axis
+    assert check_layout(dataclasses.replace(m, bev_shard_axis="model"),
+                        two) is True
+    assert check_layout(dataclasses.replace(m, bev_shard_axis="model"),
+                        mesh) is False
+    with pytest.raises(ValueError, match="bev_shard_axis"):
+        check_layout(dataclasses.replace(m, bev_shard_axis="data"), two)
+    with pytest.raises(ValueError, match="bev_h=49"):
+        check_layout(dataclasses.replace(m, bev_h=49, bev_shard_axis="model"),
+                     two)
+    with pytest.raises(ValueError, match="bev_shard_axis"):
+        make_train_step(dataclasses.replace(cfg, model=dataclasses.replace(
+            m, bev_shard_axis="rows")))
     batch = {"x": np.arange(8).reshape(4, 2), "y": np.arange(4)}
     for r in (0, 1):
         got = parallel.shard_batch(batch, 2, rank=r)
         np.testing.assert_array_equal(got["x"], batch["x"][2 * r:2 * r + 2])
         np.testing.assert_array_equal(got["y"], batch["y"][2 * r:2 * r + 2])
+        got = parallel.shard_batch(batch, Mesh(2, 2, r, 1))
+        np.testing.assert_array_equal(got["x"], batch["x"][2 * r:2 * r + 2])
     np.testing.assert_array_equal(parallel.shard_batch(batch, 1)["x"],
                                   batch["x"])
     with pytest.raises(ValueError, match="does not split"):
