@@ -1,0 +1,8 @@
+"""The steps' bf16 matrix operations (forward and backward) over the
+window time at the card's 989 TFLOP/s bf16 peak, %."""
+
+from occbench import readers
+
+
+def read(record):
+    return readers.mfu(record, "train")
