@@ -222,7 +222,8 @@ Phases (each raises on failure, so any failure exits nonzero):
               checkpoint every step), --profile 2, 4 steps: 3 checkpoints
               kept with their metadata, metrics.jsonl in the JAX format
               with its "hbm" event, the trace naming the lift, tap,
-              lift_bwd and tap_bwd kernels; --resume from the step-2
+              lift_bwd and tap_bwd kernels and holding the spans'
+              occ/ ranges, their summary beside it; --resume from the step-2
               checkpoint equal to the uninterrupted run
  35. dist_test  occnet_tpu_torch/tools/dist_test.sh at world 2 (gloo, one
               card) with phase 34's checkpoint, --eval --format-only on the
@@ -4611,7 +4612,9 @@ def phase_dist_train(torch, results, root, tmp):
     one-frame train split (an epoch a step, so every step checkpoints),
     --distributed --profile 2, 4 steps: three checkpoints kept, the
     manager's metadata, metrics.jsonl in the JAX package's format with its
-    "hbm" event, the trace naming the four hand kernels of the step; then
+    "hbm" event, the trace naming the four hand kernels of the step and
+    holding the spans' ``occ/`` ranges, the spans' summary beside it (the
+    two profiled steps' items); then
     --resume from the step-2 checkpoint in a fresh work dir equal to the
     uninterrupted run."""
     import pickle
@@ -4631,9 +4634,13 @@ def phase_dist_train(torch, results, root, tmp):
     files = sorted(os.listdir(work))
     ck = torch.load(os.path.join(work, "ckpt.pt"), weights_only=True)
     ev = read_events(os.path.join(work, "metrics.jsonl"))
-    traces = os.listdir(os.path.join(work, "trace"))
+    listing = sorted(os.listdir(os.path.join(work, "trace")))
+    traces = [t for t in listing if t.startswith("trace_")]
+    summaries = [t for t in listing if t.startswith("spans_")]
     with open(os.path.join(work, "trace", traces[0])) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    with open(os.path.join(work, "trace", summaries[0])) as f:
+        roots = [it["root"] for it in json.load(f)]
     kern = {k: sum(s in n for n in names) for k, s in (
         ("lift", "lift_level_kernel"), ("tap", "tap_kernel<"),
         ("lift_bwd", "lift_bwd_kernel"), ("tap_bwd", "tap_bwd_kernel"))}
@@ -4643,7 +4650,9 @@ def phase_dist_train(torch, results, root, tmp):
         f"{dt:.1f} s: work dir {files}; ckpt.pt -> "
         f"{os.readlink(os.path.join(work, 'ckpt.pt'))} (step {ck['step']}, "
         f"env {ck['env']}); losses {[round(e['loss'], 4) for e in train]}; "
-        f"hbm {hbm}; trace {traces[0]}: kernel names {kern}")
+        f"hbm {hbm}; trace {traces[0]}: kernel names {kern}, "
+        f"occ/train.step {'occ/train.step' in names}; spans {summaries}: "
+        f"roots {roots}")
     steps = sorted(int(f[5:-3]) for f in files
                    if f.startswith("ckpt_") and f.endswith(".pt"))
     if steps != [2, 3, 4] or ck["step"] != 4 \
@@ -4652,7 +4661,9 @@ def phase_dist_train(torch, results, root, tmp):
             or not all({"ts", "step", "tag", "loss", "grad_norm",
                         "s_per_it"} <= e.keys() for e in train) \
             or len(hbm) != 1 or not hbm[0]["peak_bytes_in_use"] > 0 \
-            or len(traces) != 1 or not all(kern.values()):
+            or len(traces) != 1 or not all(kern.values()) \
+            or "occ/train.step" not in names or len(summaries) != 1 \
+            or roots != ["train.step"] * 2:
         raise RuntimeError("dist_train.sh's run is not what it should be")
     resumed = os.path.join(tmp, "dist_train_resumed")
     os.makedirs(resumed)
@@ -5740,6 +5751,7 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
     from occnet_tpu_torch.config import turbo_occ
     from occnet_tpu_torch.ops import _build
+    from occnet_tpu_torch.utils.profiling import spans
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -5752,8 +5764,12 @@ def main():
         f"{torch.backends.cudnn.allow_tf32}")
 
     # 2. build
-    _build.library()
-    log(f"[2 build] kernels built/loaded in {_build.build_seconds:.2f} s")
+    with spans() as rec:
+        _build.library()
+    for setup in rec.summary():         # none if loaded before this phase
+        log(f"[2 build] kernels built/loaded in "
+            f"{setup['spans']['setup.kernels']['host_ms'] * 1e-3:.2f} s "
+            f"(compiled: {setup['counters']['kernels.built']:.0f})")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())

@@ -28,6 +28,7 @@ import torch.nn as nn
 from occnet_tpu_torch.config import SCAConfig, TSAConfig
 from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.ops.msda import multi_scale_deformable_attention
+from occnet_tpu_torch.utils import profiling
 
 
 def radial_offset_bias(num_heads: int, num_level_slots: int,
@@ -98,7 +99,13 @@ class MSDeformableAttention3D(nn.Module):
 class SpatialCrossAttention(nn.Module):
     """BEV -> image cross attention over the camera feature pyramid: per
     camera, the visible queries sample that camera's pyramid; the camera
-    outputs are summed per query and divided by its visible-camera count."""
+    outputs are summed per query and divided by its visible-camera count.
+
+    The visibility counts, the top-K, the gathers of the selected queries
+    and references and the scatter-add of their outputs are the span
+    ``sca.select`` (MSDA is not in it); the counters ``sca.visible`` and
+    ``sca.slots`` add the visible (query, camera) pairs and the MSDA slots
+    (B x the cameras' K, or B x cameras x Q on the dense-masked branch)."""
 
     def __init__(self, cfg: SCAConfig, embed_dims: int = 256,
                  num_cams: int = 6, dtype: torch.dtype = torch.float32):
@@ -147,19 +154,24 @@ class SpatialCrossAttention(nn.Module):
             query = query + query_pos
         ref_bc = reference_points_cam.permute(1, 0, 2, 3, 4)   # (B,cam,Q,Z,2)
         Z = ref_bc.shape[3]
-        vis_cnt = bev_mask.sum(dim=-1)                         # (cam, B, Q)
-        visible = (vis_cnt > 0).permute(1, 0, 2)               # (B, cam, Q)
-        count = visible.sum(dim=1).clamp(min=1).float()        # (B, Q)
-        overflow = torch.zeros((), dtype=torch.int64, device=query.device)
         ks = self.topk_sizes(Q)
-        ks_cert = ks if shard is None else self.topk_sizes(shard.num_queries)
-        if ks_cert:
-            n_visible = visible.sum(dim=2)                     # (B, cam)
-            if shard is not None:
-                n_visible = shard.sum_(n_visible)
-            k_t = torch.tensor(ks_cert, dtype=torch.int64,
-                               device=query.device)
-            overflow = (n_visible - k_t).clamp(min=0).max()
+        with profiling.span("sca.select"):
+            vis_cnt = bev_mask.sum(dim=-1)                     # (cam, B, Q)
+            visible = (vis_cnt > 0).permute(1, 0, 2)           # (B, cam, Q)
+            count = visible.sum(dim=1).clamp(min=1).float()    # (B, Q)
+            overflow = torch.zeros((), dtype=torch.int64,
+                                   device=query.device)
+            ks_cert = ks if shard is None \
+                else self.topk_sizes(shard.num_queries)
+            if ks_cert:
+                n_visible = visible.sum(dim=2)                 # (B, cam)
+                if shard is not None:
+                    n_visible = shard.sum_(n_visible)
+                k_t = torch.tensor(ks_cert, dtype=torch.int64,
+                                   device=query.device)
+                overflow = (n_visible - k_t).clamp(min=0).max()
+        profiling.count("sca.visible", visible)
+        profiling.count("sca.slots", B * (sum(ks) if ks else n_cam * Q))
         if ks:
             scores = vis_cnt.permute(1, 0, 2)                  # (B, cam, Q)
             groups: dict = {}
@@ -168,36 +180,40 @@ class SpatialCrossAttention(nn.Module):
             slots = None
             for K_g, cams in sorted(groups.items()):
                 g = len(cams)
-                cam_idx = torch.tensor(cams, device=query.device)
-                sel = torch.topk(scores[:, cam_idx], K_g, dim=-1).indices
-                q_sel = torch.gather(
-                    query[:, None].expand(B, g, Q, C), 2,
-                    sel[..., None].expand(B, g, K_g, C))
-                ref_sel = torch.gather(
-                    ref_bc[:, cam_idx], 2,
-                    sel[..., None, None].expand(B, g, K_g, Z, 2))
+                with profiling.span("sca.select"):
+                    cam_idx = torch.tensor(cams, device=query.device)
+                    sel = torch.topk(scores[:, cam_idx], K_g, dim=-1).indices
+                    q_sel = torch.gather(
+                        query[:, None].expand(B, g, Q, C), 2,
+                        sel[..., None].expand(B, g, K_g, C))
+                    ref_sel = torch.gather(
+                        ref_bc[:, cam_idx], 2,
+                        sel[..., None, None].expand(B, g, K_g, Z, 2))
                 out_sel = msda(
                     q_sel.reshape(B * g, K_g, C),
                     value[:, cam_idx].reshape(B * g, -1, C),
                     ref_sel.reshape(B * g, K_g, Z, 2), spatial_shapes)
-                out_sel = out_sel.reshape(B, g, K_g, C)
-                vis_sel = torch.gather(visible[:, cam_idx], 2, sel)
-                out_sel = out_sel * vis_sel[..., None].to(out_sel.dtype)
-                if slots is None:
-                    slots = torch.zeros(B, Q, C, dtype=out_sel.dtype,
-                                        device=query.device)
-                # top-k indices are distinct per (batch, camera): the camera
-                # contributions of a query sum as on the dense branch
-                slots.scatter_add_(
-                    1, sel.reshape(B, g * K_g, 1).expand(B, g * K_g, C),
-                    out_sel.reshape(B, g * K_g, C))
+                with profiling.span("sca.select"):
+                    out_sel = out_sel.reshape(B, g, K_g, C)
+                    vis_sel = torch.gather(visible[:, cam_idx], 2, sel)
+                    out_sel = out_sel * vis_sel[..., None].to(out_sel.dtype)
+                    if slots is None:
+                        slots = torch.zeros(B, Q, C, dtype=out_sel.dtype,
+                                            device=query.device)
+                    # top-k indices are distinct per (batch, camera): the
+                    # camera contributions of a query sum as on the dense
+                    # branch
+                    slots.scatter_add_(
+                        1, sel.reshape(B, g * K_g, 1).expand(B, g * K_g, C),
+                        out_sel.reshape(B, g * K_g, C))
         else:
             q_all = query[:, None].expand(B, n_cam, Q, C).reshape(
                 B * n_cam, Q, C)
             out = msda(q_all, value.reshape(B * n_cam, -1, C),
                        ref_bc.reshape(B * n_cam, Q, Z, 2), spatial_shapes)
-            out = out.reshape(B, n_cam, Q, C)
-            slots = (out * visible[..., None].to(out.dtype)).sum(dim=1)
+            with profiling.span("sca.select"):
+                out = out.reshape(B, n_cam, Q, C)
+                slots = (out * visible[..., None].to(out.dtype)).sum(dim=1)
         slots = (slots.float() / count[..., None]).to(self.dtype)
         slots = dropout(self.output_proj(slots), self.cfg.dropout, train,
                         generator)

@@ -19,34 +19,36 @@ from occnet_tpu_torch.models.head import OccHead
 from occnet_tpu_torch.models.resnet import ResNet, stage_channels
 from occnet_tpu_torch.models.vovnet import VoVNet, vovnet_channels
 from occnet_tpu_torch.ops.grid_mask import grid_mask_apply, grid_mask_draw
+from occnet_tpu_torch.utils.profiling import span
 
 
 class OccNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        bb = cfg.backbone
-        self.cfg = cfg
-        self.dtype = getattr(torch, cfg.compute_dtype)
-        if bb.type == "vovnet":
-            # its norms stay frozen in training, as the JAX OccNet calls
-            # its VoVNet without ``train``
-            self.backbone = VoVNet(bb.vovnet_spec, bb.out_indices,
-                                   bb.frozen_stages, self.dtype)
-            in_channels = vovnet_channels(bb.vovnet_spec, bb.out_indices)
-        elif bb.type.startswith("resnet"):
-            self.backbone = ResNet(int(bb.type.replace("resnet", "")),
-                                   bb.out_indices, self.dtype,
-                                   bb.frozen_stages, bb.norm_eval,
-                                   bb.dcn_stages, bb.dcn_mode,
-                                   bb.dcn_window_radius,
-                                   tuple(bb.dcn_window_radii))
-            in_channels = stage_channels(bb.out_indices)
-        else:
-            raise ValueError(f"unknown backbone type {bb.type!r}")
-        self.neck = FPN(in_channels, cfg.embed_dims,
-                        cfg.neck.num_outs, cfg.neck.relu_before_extra_convs,
-                        self.dtype)
-        self.head = OccHead(cfg, self.dtype)
+        with span("setup.model"):
+            bb = cfg.backbone
+            self.cfg = cfg
+            self.dtype = getattr(torch, cfg.compute_dtype)
+            if bb.type == "vovnet":
+                # its norms stay frozen in training, as the JAX OccNet calls
+                # its VoVNet without ``train``
+                self.backbone = VoVNet(bb.vovnet_spec, bb.out_indices,
+                                       bb.frozen_stages, self.dtype)
+                in_channels = vovnet_channels(bb.vovnet_spec, bb.out_indices)
+            elif bb.type.startswith("resnet"):
+                self.backbone = ResNet(int(bb.type.replace("resnet", "")),
+                                       bb.out_indices, self.dtype,
+                                       bb.frozen_stages, bb.norm_eval,
+                                       bb.dcn_stages, bb.dcn_mode,
+                                       bb.dcn_window_radius,
+                                       tuple(bb.dcn_window_radii))
+                in_channels = stage_channels(bb.out_indices)
+            else:
+                raise ValueError(f"unknown backbone type {bb.type!r}")
+            self.neck = FPN(in_channels, cfg.embed_dims,
+                            cfg.neck.num_outs,
+                            cfg.neck.relu_before_extra_convs, self.dtype)
+            self.head = OccHead(cfg, self.dtype)
 
     def extract_img_feat(self, img: torch.Tensor, train: bool = False,
                          generator: Optional[torch.Generator] = None
@@ -56,14 +58,15 @@ class OccNet(nn.Module):
         trunk's DCN window certificate or None).  In training with
         `use_grid_mask`, one grid mask drawn from ``generator`` covers every
         image.  The trunk runs NCHW in channels-last memory (a permuted
-        view)."""
+        view); the backbone and the neck are the span ``model.trunk``."""
         b, n_cam, h, w, ch = img.shape
         x = img.reshape(b * n_cam, h, w, ch).to(self.dtype)
         if train and self.cfg.use_grid_mask:
             x = grid_mask_apply(x, *grid_mask_draw(
                 generator, h, self.cfg.grid_mask_prob, x.device))
-        feats, overflow = self.backbone(x.permute(0, 3, 1, 2), train)
-        feats = self.neck(feats)
+        with span("model.trunk"):
+            feats, overflow = self.backbone(x.permute(0, 3, 1, 2), train)
+            feats = self.neck(feats)
         return [f.permute(0, 2, 3, 1).reshape(b, n_cam, *f.shape[2:],
                                               f.shape[1])
                 for f in feats], overflow

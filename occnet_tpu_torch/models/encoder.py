@@ -40,6 +40,7 @@ from occnet_tpu_torch.models.dense_attention import (
 )
 from occnet_tpu_torch.models.layers import Linear, dropout
 from occnet_tpu_torch.models.norm import LayerNorm32
+from occnet_tpu_torch.utils.profiling import span
 
 
 class FFN(nn.Module):
@@ -145,15 +146,17 @@ class BEVFormerEncoder(nn.Module):
         is given, and the pillar anchors' camera projection (ref_cam,
         bev_mask), computed once per forward; with ``shard``, for its
         queries alone (``shift_ref_2d`` already cut to them)."""
-        ref_2d, ref_3d = self.ref_2d, self.ref_3d
-        if shard is not None:
-            ref_2d, ref_3d = shard.slice_q(ref_2d, 0), shard.slice_q(ref_3d)
-        ref_2d = ref_2d[None].expand(B, *ref_2d.shape)
-        shifted = (ref_2d if shift_ref_2d is None
-                   else shift_ref_2d.float().expand(ref_2d.shape))
-        hybrid = torch.stack([shifted, ref_2d], dim=1)
-        ref_cam, bev_mask = project_bev_points_to_cameras(
-            ref_3d, self.pc_range, ego2img, self.img_hw)
+        with span("encoder.geometry"):
+            ref_2d, ref_3d = self.ref_2d, self.ref_3d
+            if shard is not None:
+                ref_2d = shard.slice_q(ref_2d, 0)
+                ref_3d = shard.slice_q(ref_3d)
+            ref_2d = ref_2d[None].expand(B, *ref_2d.shape)
+            shifted = (ref_2d if shift_ref_2d is None
+                       else shift_ref_2d.float().expand(ref_2d.shape))
+            hybrid = torch.stack([shifted, ref_2d], dim=1)
+            ref_cam, bev_mask = project_bev_points_to_cameras(
+                ref_3d, self.pc_range, ego2img, self.img_hw)
         return (hybrid, ref_cam, bev_mask, self.bev_hw,
                 tuple(img_spatial_shapes))
 

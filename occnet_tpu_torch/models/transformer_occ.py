@@ -21,6 +21,7 @@ from occnet_tpu_torch.ops.planar_lift import lift_and_average
 from occnet_tpu_torch.parallel.mesh import data_axis
 from occnet_tpu_torch.parallel.multihost import all_reduce_sum
 from occnet_tpu_torch.parallel.qshard import active_qshard
+from occnet_tpu_torch.utils.profiling import span
 
 
 class BatchNorm3d(nn.Module):
@@ -167,31 +168,34 @@ class TransformerOcc(nn.Module):
         active_qshard`: a train step at mp > 1 with ``bev_shard_axis =
         "model"``) the encoder runs on this rank's block of rows (the lift
         on those rows alone) and its output is gathered over the model
-        group once: every rank returns the whole BEV."""
-        c = self.cfg
-        b = mlvl_feats[0].shape[0]
-        shard = active_qshard(c)
-        queries = bev_queries[None].expand(b, *bev_queries.shape).to(
-            self.dtype)
-        if c.encoder.mode == "gather":
-            value, shapes = self.flatten_mlvl_feats(mlvl_feats)
-            bev, overflow = self.encoder(
-                queries, value, bev_pos, ego2img, shapes, prev_bev,
-                shift_ref_2d, train, generator, shard)
-        else:
-            feats = [self.shared_value_proj(f)
-                     for f in self.flat_embed(mlvl_feats)]
-            lifted, _count = lift_and_average(
-                feats, ego2img, c.pc_range, c.encoder.num_points_in_pillar,
-                (c.bev_h, c.bev_w), (c.img_h, c.img_w), out_dtype=self.dtype,
-                rows=None if shard is None else shard.rows)
-            bev, overflow = self.encoder(
-                queries, lifted, bev_pos, prev_bev=prev_bev,
-                shift_ref_2d=shift_ref_2d, train=train, generator=generator,
-                shard=shard)
-        if shard is not None:
-            bev = shard.gather(bev)
-        return bev, overflow
+        group once: every rank returns the whole BEV.  The whole is the
+        span ``model.encoder``."""
+        with span("model.encoder"):
+            c = self.cfg
+            b = mlvl_feats[0].shape[0]
+            shard = active_qshard(c)
+            queries = bev_queries[None].expand(b, *bev_queries.shape).to(
+                self.dtype)
+            if c.encoder.mode == "gather":
+                value, shapes = self.flatten_mlvl_feats(mlvl_feats)
+                bev, overflow = self.encoder(
+                    queries, value, bev_pos, ego2img, shapes, prev_bev,
+                    shift_ref_2d, train, generator, shard)
+            else:
+                feats = [self.shared_value_proj(f)
+                         for f in self.flat_embed(mlvl_feats)]
+                lifted, _count = lift_and_average(
+                    feats, ego2img, c.pc_range,
+                    c.encoder.num_points_in_pillar, (c.bev_h, c.bev_w),
+                    (c.img_h, c.img_w), out_dtype=self.dtype,
+                    rows=None if shard is None else shard.rows)
+                bev, overflow = self.encoder(
+                    queries, lifted, bev_pos, prev_bev=prev_bev,
+                    shift_ref_2d=shift_ref_2d, train=train,
+                    generator=generator, shard=shard)
+            if shard is not None:
+                bev = shard.gather(bev)
+            return bev, overflow
 
     def decode_voxels(self, bev_embed: torch.Tensor, train: bool = False
                       ) -> torch.Tensor:
@@ -214,10 +218,12 @@ class TransformerOcc(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
-        """-> (bev_embed, occ logits, flow, sca_topk_overflow or None)."""
+        """-> (bev_embed, occ logits, flow, sca_topk_overflow or None).  The
+        voxel decoder and the heads are the span ``model.decode``."""
         bev_embed, overflow = self.get_bev_features(
             mlvl_feats, bev_queries, bev_pos, ego2img, prev_bev, shift_ref_2d,
             train, generator)
-        vox = self.decode_voxels(bev_embed, train)
-        return (bev_embed, self.predicter(vox), self.flow_predicter(vox),
-                overflow)
+        with span("model.decode"):
+            vox = self.decode_voxels(bev_embed, train)
+            occ, flow = self.predicter(vox), self.flow_predicter(vox)
+        return bev_embed, occ, flow, overflow

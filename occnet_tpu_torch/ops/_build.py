@@ -21,8 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from typing import Optional, Sequence
+
+from occnet_tpu_torch.utils.profiling import count, span
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -32,7 +33,6 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None   # wall time of the last build/load
 
 
 def _nvcc() -> str:
@@ -53,22 +53,25 @@ def _sources() -> Sequence[str]:
 
 
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib, build_seconds
+    """Build (if needed) and load the kernel library; cached per process.
+    The build or load is the span ``setup.kernels``, and the counter
+    ``kernels.built`` is 1 when this process compiled the library."""
+    global _lib
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
-    srcs = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as f:
-            digest.update(os.path.basename(s).encode() + f.read())
-    so = os.path.join(BUILD_DIR, f"liboccnet_kernels_{digest.hexdigest()[:16]}"
-                                 ".so")
-    if not os.path.exists(so):
-        _compile(so, [s for s in srcs if s.endswith(".cu")])
-    _lib = ctypes.CDLL(so)
-    build_seconds = time.perf_counter() - t0
+    with span("setup.kernels"):
+        srcs = _sources()
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in srcs:
+            with open(s, "rb") as f:
+                digest.update(os.path.basename(s).encode() + f.read())
+        so = os.path.join(BUILD_DIR, "liboccnet_kernels_"
+                                     f"{digest.hexdigest()[:16]}.so")
+        built = not os.path.exists(so)
+        if built:
+            _compile(so, [s for s in srcs if s.endswith(".cu")])
+        count("kernels.built", int(built))
+        _lib = ctypes.CDLL(so)
     return _lib
 
 

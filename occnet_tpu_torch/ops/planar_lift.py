@@ -22,6 +22,7 @@ import torch
 
 from occnet_tpu_torch.ops.lift_cuda import (_resolve, lift_bwd_index,
                                             lift_level, lift_level_bwd)
+from occnet_tpu_torch.utils.profiling import span
 
 
 def z_anchors(pc_range: Sequence[float], num_z: int) -> np.ndarray:
@@ -215,27 +216,29 @@ def lift_and_average(
     bev_w queries, the whole lift's queries r0 * bev_w .. r1 * bev_w - 1,
     bit for bit: a BEV-query shard's, as the JAX package shards the lift's
     Q axis).  Differentiable in the features (bf16 gradient, as in the JAX
-    package)."""
+    package).  The homographies, the level geometry and the count are the
+    span ``encoder.geometry``."""
     dev = ego2img.device
     bev_h, bev_w = bev_hw
     r0, r1 = (0, bev_h) if rows is None else rows
     Q = (r1 - r0) * bev_w
     B = ego2img.shape[0]
     C = mlvl_feats[0].shape[-1]
-    z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
-    H = plane_homographies(ego2img.float(), pc_range, z, bev_hw)
-    geoms = []
-    count = inv_count = None
-    for lvl, feat in enumerate(mlvl_feats):
-        h, w = feat.shape[2], feat.shape[3]
-        Ml = feature_homographies(H, h, w, img_hw)
-        pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w,
-                                                  rows=(r0, r1))
-        if lvl == 0:
-            count = valid.any(dim=2).sum(dim=1).to(torch.float32)
-            count = count.clamp(min=1.0).reshape(B, Q)
-            inv_count = 1.0 / count
-        geoms.append((pos1, pos2, steep))
+    with span("encoder.geometry"):
+        z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
+        H = plane_homographies(ego2img.float(), pc_range, z, bev_hw)
+        geoms = []
+        count = inv_count = None
+        for lvl, feat in enumerate(mlvl_feats):
+            h, w = feat.shape[2], feat.shape[3]
+            Ml = feature_homographies(H, h, w, img_hw)
+            pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w,
+                                                      rows=(r0, r1))
+            if lvl == 0:
+                count = valid.any(dim=2).sum(dim=1).to(torch.float32)
+                count = count.clamp(min=1.0).reshape(B, Q)
+                inv_count = 1.0 / count
+            geoms.append((pos1, pos2, steep))
     U_bar = _LiftAverage.apply(
         geoms, inv_count, (B, len(mlvl_feats), num_z, Q, C), out_dtype, impl,
         *[f.to(torch.bfloat16).contiguous() for f in mlvl_feats])

@@ -34,6 +34,7 @@ from occnet_tpu_torch.config import OccNetConfig
 from occnet_tpu_torch.data.pipeline import make_device_normalizer
 from occnet_tpu_torch.models.detector import OccNet
 from occnet_tpu_torch.models.head import get_occ
+from occnet_tpu_torch.utils.profiling import span
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -74,10 +75,11 @@ class Predictor:
         sums the certificates over many requests (`tools.test`) or streams
         a scene (`training.temporal.StreamingInferenceState`, which passes
         the aligned history BEV and the shifted TSA reference)."""
-        imgs = torch.as_tensor(images).to(self.device, non_blocking=True)
-        e2i = torch.as_tensor(ego2img).to(self.device, torch.float32,
-                                          non_blocking=True)
-        x = self.normalize(imgs)
+        with span("serve.input"):
+            imgs = torch.as_tensor(images).to(self.device, non_blocking=True)
+            e2i = torch.as_tensor(ego2img).to(self.device, torch.float32,
+                                              non_blocking=True)
+            x = self.normalize(imgs)
         m = self.cfg.model
         if tuple(x.shape[-3:-1]) != (m.img_h, m.img_w):
             raise ValueError(f"padded images are {tuple(x.shape[-3:-1])}, "
@@ -90,23 +92,30 @@ class Predictor:
         """images uint8 (B, cams, H, W, 3) RGB (or already-normalised float),
         ego2img (B, cams, 4, 4).  Returns (occ_cls (B, X, Y, Z) int64,
         flow (B, X, Y, Z, 2)) on the predictor's device, plus the occ logits
-        (B, X, Y, Z, classes) with ``with_logits``."""
-        outs = self.infer(images, ego2img)
-        self.sca_topk_overflow, self.dcn_window_overflow = (
-            None if outs.get(k) is None else int(outs[k])
-            for k in ("sca_topk_overflow", "dcn_window_overflow"))
-        if self.sca_topk_overflow:
-            raise RuntimeError(
-                f"sca_topk_overflow={self.sca_topk_overflow}: the SCA top-K "
-                f"(max_queries_per_cam / per_cam_topk) dropped visible "
-                f"queries of this rig; size it with "
-                f"occnet_tpu_torch.geometry.calibration_topk")
-        if self.dcn_window_overflow:
-            raise RuntimeError(
-                f"dcn_window_overflow={self.dcn_window_overflow}: DCN samples "
-                f"lie outside the window radius, where the JAX window model "
-                f"zeroes them; raise model.backbone.dcn_window_radius (or "
-                f"the per-layer dcn_window_radii)")
-        occ_cls, flow = get_occ(outs)
-        return (occ_cls, flow, outs["occ"]) if with_logits else (occ_cls,
-                                                                  flow)
+        (B, X, Y, Z, classes) with ``with_logits``.  The request is the
+        root span ``serve.request``; reading its certificates back, which
+        waits for the card, the span ``serve.readback``."""
+        with span("serve.request"):
+            outs = self.infer(images, ego2img)
+            certs = [outs.get(k) for k in ("sca_topk_overflow",
+                                           "dcn_window_overflow")]
+            if any(c is not None for c in certs):
+                with span("serve.readback"):
+                    certs = [None if c is None else int(c) for c in certs]
+            self.sca_topk_overflow, self.dcn_window_overflow = certs
+            if self.sca_topk_overflow:
+                raise RuntimeError(
+                    f"sca_topk_overflow={self.sca_topk_overflow}: the SCA "
+                    f"top-K (max_queries_per_cam / per_cam_topk) dropped "
+                    f"visible queries of this rig; size it with "
+                    f"occnet_tpu_torch.geometry.calibration_topk")
+            if self.dcn_window_overflow:
+                raise RuntimeError(
+                    f"dcn_window_overflow={self.dcn_window_overflow}: DCN "
+                    f"samples lie outside the window radius, where the JAX "
+                    f"window model zeroes them; raise "
+                    f"model.backbone.dcn_window_radius (or the per-layer "
+                    f"dcn_window_radii)")
+            occ_cls, flow = get_occ(outs)
+            return (occ_cls, flow, outs["occ"]) if with_logits \
+                else (occ_cls, flow)

@@ -58,7 +58,9 @@ background thread; ``--resume`` continues from the newest (or from a lone
 ``ckpt.pt``).  The exactness certificates (`cert_overflow`) are summed on
 the device and checked at every log: a nonzero sum aborts the run.
 ``--profile N`` traces steps step0+2 .. step0+2+N with `torch.profiler`
-into ``<work-dir>/trace`` (a Chrome trace a rank).  Returns the logged
+into ``<work-dir>/trace`` (a Chrome trace a rank, which carries the
+program's spans as ``occ/<name>`` ranges, and beside it their summary,
+`utils.profiling`).  Returns the logged
 metrics, evaluations included.
 
 ``--distributed`` trains over the ranks of a launcher (`torchrun`,
@@ -146,7 +148,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         "gloo without)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="trace N steps (after a 2-step warm-up) with "
-                        "torch.profiler into <work-dir>/trace")
+                        "torch.profiler into <work-dir>/trace: a Chrome "
+                        "trace with the program's spans (occ/<name> "
+                        "ranges) and a JSON summary of the spans and "
+                        "counters")
     p.add_argument("--log-interval", type=int, default=1,
                    help="log (and sync) every N steps")
     p.add_argument("--device", default="cuda",

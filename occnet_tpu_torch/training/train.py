@@ -69,9 +69,10 @@ trunks (their backward kernels behind the autograd Functions of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -92,6 +93,7 @@ from occnet_tpu_torch.parallel.multihost import (
     group_size,
     world_size,
 )
+from occnet_tpu_torch.utils.profiling import grad_span, span
 
 
 def make_lr_schedule(cfg: OccNetConfig) -> Callable[[int], float]:
@@ -151,13 +153,14 @@ def clip_by_global_norm(params: List[torch.nn.Parameter], max_norm: float
     """optax `clip_by_global_norm` on the ``.grad`` of ``params``, in place:
     g -> (g / |g|) * max_norm when |g| >= max_norm (not `clip_grad_norm_`'s
     max / (|g| + 1e-6)).  Returns the pre-clip global norm (fp32 tensor, no
-    device sync)."""
-    grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+    device sync).  The span ``train.clip``."""
+    with span("train.clip"):
+        grads = [p.grad for p in params]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        keep = norm < max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, (g / norm) * max_norm))
     return norm
 
 
@@ -277,6 +280,17 @@ def backward(loss: torch.Tensor, mesh: Mesh, sharded: bool) -> None:
     (loss / mesh.mp if sharded else loss).backward()
 
 
+@contextlib.contextmanager
+def _phase(name: str, mark: Optional[Callable[[str], None]]
+          ) -> Iterator[None]:
+    """A phase of the train step: the span ``train.<name>``, then
+    ``mark(name)``."""
+    with span("train." + name):
+        yield
+    if mark:
+        mark(name)
+
+
 def make_train_step(cfg: OccNetConfig, seed: int = 0,
                     mesh: Optional[Mesh] = None):
     """Returns ``train_step(state, batch, mark=None) -> metrics``.
@@ -294,7 +308,11 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0,
     certificates are the global batch's (see the module doc).
     ``mark(name)``, when given, is called after the "forward", "backward"
     and "optimizer" phases (for timing), and under a process group after
-    the gradient "allreduce".
+    the gradient "allreduce".  With spans on (`utils.profiling`) the step
+    is the root span ``train.step``, its phases ``train.forward``,
+    ``train.backward`` and ``train.optimizer``, and the trunk's backward,
+    from the gradient's arrival at the FPN outputs to the backward's end,
+    ``train.backward.trunk``.
 
     ``mesh`` is the (data, model) layout of the ranks (default:
     `make_mesh(cfg.parallel.dp, cfg.parallel.mp)`); ``batch`` is the data
@@ -310,30 +328,30 @@ def make_train_step(cfg: OccNetConfig, seed: int = 0,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
-        with active(mesh):
+        with active(mesh), span("train.step"):
             return _step(state, batch, mark)
 
     def _step(state, batch, mark):
         dev = batch["ego2img"].device
-        gen, drop, rank, world = step_generators(seed, state.step, dev, mesh)
-        img = augment(gen, batch["img"], (rank, world))
-        outs = state.model(img, batch["ego2img"], train=True, generator=gen,
-                           dropout_generator=drop)
-        loss_occ, loss_flow = occ_flow_loss(
-            outs["occ"], outs["flow"], batch["voxel_semantics"],
-            batch["voxel_flow"], cfg.loss,
-            mask_camera=batch.get("mask_camera"))
-        loss = loss_occ + loss_flow
-        if mark:
-            mark("forward")
-        state.optimizer.zero_grad(set_to_none=True)
-        backward(loss, mesh, sharded)
-        if mark:
-            mark("backward")
-        grad_norm, lr = apply_gradients(state, cfg, schedule, mark, mesh,
-                                        sharded)
-        if mark:
-            mark("optimizer")
+        trunk_bwd = grad_span(state.model.neck, "train.backward.trunk")
+        with _phase("forward", mark):
+            gen, drop, rank, world = step_generators(seed, state.step, dev,
+                                                     mesh)
+            img = augment(gen, batch["img"], (rank, world))
+            outs = state.model(img, batch["ego2img"], train=True,
+                               generator=gen, dropout_generator=drop)
+            loss_occ, loss_flow = occ_flow_loss(
+                outs["occ"], outs["flow"], batch["voxel_semantics"],
+                batch["voxel_flow"], cfg.loss,
+                mask_camera=batch.get("mask_camera"))
+            loss = loss_occ + loss_flow
+        with _phase("backward", mark):
+            state.optimizer.zero_grad(set_to_none=True)
+            backward(loss, mesh, sharded)
+            trunk_bwd.stop()
+        with _phase("optimizer", mark):
+            grad_norm, lr = apply_gradients(state, cfg, schedule, mark, mesh,
+                                            sharded)
         state.step += 1
         cert = torch.zeros((), dtype=torch.int64, device=dev)
         for k, v in outs.items():

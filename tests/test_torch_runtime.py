@@ -3,7 +3,7 @@ package where it has them: the process-group helpers without a launcher
 (no-ops) and at world size 1 (the norms, the loss and a whole train step
 bitwise those of no group), the mesh, `grad_checker` against JAX's on the
 same zeroed gradients, `JsonlWriter` records against JAX's, the profiler's
-Chrome trace with an annotated region, `entry.example_batch` against
+Chrome trace with an annotated region and the program's spans, `entry.example_batch` against
 `__graft_entry__._example_batch`, the dry run's device choice, and the
 checkpoint manager."""
 
@@ -34,7 +34,8 @@ from occnet_tpu_torch.training import checkpoint
 from occnet_tpu_torch.training.train import (TrainState, create_train_state,
                                              grad_checker, make_train_step)
 from occnet_tpu_torch.utils.events import JsonlWriter
-from occnet_tpu_torch.utils.profiling import annotate, device_sync, trace
+from occnet_tpu_torch.utils.profiling import (annotate, device_sync, span,
+                                              trace)
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -276,16 +277,25 @@ def test_jsonl_writer_records_are_jax_records(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
+    """The Chrome trace holds the annotation and the program's spans as
+    ``occ/<name>`` ranges; the spans' summary lies beside it."""
     x = torch.randn(64, 64)
     with trace(str(tmp_path / "trace")):
         with annotate("occnet_region"):
-            y = x @ x
+            with span("serve.request"), span("model.trunk"):
+                y = x @ x
         device_sync(y)
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].startswith("trace_rank0_")
-    with open(tmp_path / "trace" / files[0]) as f:
+    files = sorted(os.listdir(tmp_path / "trace"))
+    assert len(files) == 2 and files[0].startswith("spans_rank0_")
+    assert files[1] == "trace" + files[0][len("spans"):]
+    with open(tmp_path / "trace" / files[1]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "occnet_region" in names
+    assert {"occnet_region", "occ/serve.request", "occ/model.trunk"} <= names
+    with open(tmp_path / "trace" / files[0]) as f:
+        (item,) = json.load(f)
+    assert item["root"] == "serve.request"
+    assert set(item["spans"]) == {"serve.request", "model.trunk"}
+    assert span("serve.request") is span("model.trunk")   # off after it
 
 
 def test_example_batch_is_the_jax_entry_batch():
