@@ -272,6 +272,16 @@ Phases (each raises on failure, so any failure exits nonzero):
               synthetic scenes, an eval and a checkpoint each epoch) and
               tools.soak_report over its work directory: the JAX tool's
               keys, the manager's checkpoints, a finite peak, no abort
+ 43. lift geometry  the geometry kernel (csrc/lift_geometry.cu) bitwise
+              equal to its plain version on the card (pos1, pos2, steep of
+              every level, count, inv_count): the ring rig (cells exactly on
+              the cameras' field-of-view edges) at tiny_turbo_occ's and
+              turbo_occ's widths, B = 1 and B = 4, BEV rows [0, 100) and
+              [100, 200), the overlapping rig and three random rigs; kernel,
+              plain version and bound timed in turns at B = 1 and B = 4; one
+              full-width lift_and_average under
+              torch.cuda.set_sync_debug_mode("error") (the plain geometry
+              shown to synchronise), and its counter in the spans
 The last lines are the kernels JSON (each kernel with its bound_ms: the
 largest of its compulsory bytes over 3.35 TB/s, its fp32 operations over
 67 TFLOP/s and, for the fused DCN, its bf16 tensor-core operations over
@@ -437,24 +447,14 @@ def bf16_step_apart(torch, a, b):
     return ((a - b).abs() > bound).sum().item()
 
 
-def lift_geometry(torch, m, e2i, levels, rows=None):
+def lift_geometry(m, e2i, levels, rows=None):
     """Per level (pos1, pos2, steep) and the level-0 inv_count of the lift
     at the model's BEV grid (its rows ``rows`` = (r0, r1) alone when
-    given), for the feature sizes ``levels``."""
+    given), for the feature sizes ``levels``: the plain version."""
     from occnet_tpu_torch.ops import planar_lift
-    Z = m.encoder.num_points_in_pillar
-    bev_hw, img_hw = (m.bev_h, m.bev_w), (m.img_h, m.img_w)
-    z = torch.from_numpy(planar_lift.z_anchors(m.pc_range, Z)).to(e2i.device)
-    H = planar_lift.plane_homographies(e2i, m.pc_range, z, bev_hw)
-    geo, inv = [], None
-    for h, w in levels:
-        Ml = planar_lift.feature_homographies(H, h, w, img_hw)
-        p1, p2, st, valid = planar_lift.level_geometry(Ml, bev_hw, h, w,
-                                                       rows=rows)
-        if inv is None:
-            count = valid.any(dim=2).sum(dim=1).float().clamp(min=1.0)
-            inv = (1.0 / count).reshape(e2i.shape[0], -1).contiguous()
-        geo.append((p1, p2, st))
+    geo, _, inv = planar_lift.lift_geometry_plain(
+        e2i, m.pc_range, m.encoder.num_points_in_pillar, (m.bev_h, m.bev_w),
+        (m.img_h, m.img_w), levels, rows)
     return geo, inv
 
 
@@ -503,6 +503,173 @@ def edge_positions(torch, gen, B, A, ZR, M, h, w):
                     torch.full((h,), float(w), device=dev)]).expand(
         B, A, ZR, w + h)
     return draw(n1).contiguous(), draw(n2).contiguous(), steep
+
+
+def random_rig(m, batch, seed):
+    """A random rig: each camera yawed anywhere, pitched and rolled up to
+    0.1 rad, placed up to 2 m off the ego origin, focal 0.4-0.8 img_w,
+    principal point up to 5 % off the image centre."""
+    rng = np.random.RandomState(seed)
+    ego2img = np.tile(np.eye(4, dtype=np.float32), (batch, m.num_cams, 1, 1))
+    for b in range(batch):
+        for ci in range(m.num_cams):
+            yaw = rng.uniform(0, 2 * np.pi)
+            pitch, roll = rng.uniform(-0.1, 0.1, 2)
+            cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), \
+                np.sin(pitch)
+            # ego (x fwd, y left, z up) -> camera (x right, y down, z fwd)
+            R = np.array([[sy, -cy, 0], [0, 0, -1], [cy, sy, 0.0]])
+            R = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]) @ R
+            R = np.array([[np.cos(roll), -np.sin(roll), 0],
+                          [np.sin(roll), np.cos(roll), 0], [0, 0, 1]]) @ R
+            t = -R @ np.array([*rng.uniform(-2, 2, 2), 1.5])
+            f = rng.uniform(0.4, 0.8) * m.img_w
+            K = np.array([[f, 0, m.img_w * rng.uniform(0.45, 0.55)],
+                          [0, f, m.img_h * rng.uniform(0.45, 0.55)],
+                          [0, 0, 1]])
+            ego2img[b, ci, :3, :3] = (K @ R).astype(np.float32)
+            ego2img[b, ci, :3, 3] = (K @ t).astype(np.float32)
+    return ego2img
+
+
+def feature_levels(m):
+    """The (h, w) of the four FPN levels at the model's padded image."""
+    return [(-(-m.img_h // s), -(-m.img_w // s)) for s in (8, 16, 32, 64)]
+
+
+def phase_lift_geometry(torch, results):
+    from occnet_tpu_torch.config import tiny_turbo_occ, turbo_occ
+    from occnet_tpu_torch.ops import planar_lift
+    from occnet_tpu_torch.ops.planar_lift import (GEOMETRY,
+                                                  lift_geometry_cuda,
+                                                  lift_geometry_plain)
+    from occnet_tpu_torch.utils.profiling import span, spans
+    dev = torch.device("cuda")
+    fm, tm = turbo_occ().model, tiny_turbo_occ().model
+
+    def geo_args(m):
+        return (m.pc_range, m.encoder.num_points_in_pillar,
+                (m.bev_h, m.bev_w), (m.img_h, m.img_w), feature_levels(m))
+
+    def differing(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return -1
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return int((a != b).sum())
+
+    def held(label, m, e2i, rows=None):
+        e = torch.from_numpy(e2i).to(dev)
+        gk, ck, ik = lift_geometry_cuda(e, *geo_args(m), rows)
+        gp, cp, ip = lift_geometry_plain(e, *geo_args(m), rows)
+        torch.cuda.synchronize()
+        named = [(f"level {lvl} {name}", a, b)
+                 for lvl, (lk, lp) in enumerate(zip(gk, gp))
+                 for name, a, b in zip(("pos1", "pos2", "steep"), lk, lp)]
+        named += [("count", ck, cp), ("inv_count", ik, ip)]
+        bad = {n: k for n, a, b in named if (k := differing(a, b))}
+        live = (gk[0][1] > -2).float().mean().item()
+        log(f"  {label}: B={e.shape[0]}, rows {rows or (0, m.bev_h)}, "
+            f"level-0 pos2 {tuple(gk[0][1].shape)} {live:.1%} live, count "
+            f"[{ck.min().item():.0f}, {ck.max().item():.0f}]: bitwise equal "
+            f"to the plain version in all {len(named)} outputs "
+            f"{not bad}")
+        if bad:
+            raise RuntimeError(f"lift geometry kernel differs from plain "
+                               f"({label}): differing elements {bad}")
+        return ck
+
+    held("tiny_turbo_occ ring", tm, ring_rig(tm, 1))
+    held("tiny_turbo_occ ring, yawed 0.1 a sample", tm, ring_rig(tm, 4, 0.1))
+    held("turbo_occ ring", fm, ring_rig(fm, 1))
+    held("turbo_occ ring, yawed 0.1 a sample", fm, ring_rig(fm, 4, 0.1))
+    for rows in ((0, 100), (100, 200)):
+        held("turbo_occ ring", fm, ring_rig(fm, 1), rows)
+        held("turbo_occ ring, yawed 0.1 a sample", fm, ring_rig(fm, 4, 0.1),
+             rows)
+    if held("turbo_occ overlapping cameras", fm,
+            ring_rig(fm, 1, spacing=np.pi / 6)).max().item() < 3:
+        raise RuntimeError("the overlapping rig sees no cell with 3 cameras")
+    for seed in range(3):
+        held(f"turbo_occ random rig {seed}", fm, random_rig(fm, 2, seed))
+
+    # time, B = 1 and B = 4: each call's device time by the profiler (the
+    # wrapper's host work, ~0.1 ms, paces back-to-back calls, so CUDA
+    # events over them time the host), and the calls in turns
+    from occnet_tpu_torch.tools.profile_turbo import device_profile
+    reps = 10
+    for B in (1, 4):
+        e = torch.from_numpy(ring_rig(fm, B, 0.1)).to(dev)
+        geo, ck, ik = lift_geometry_cuda(e, *geo_args(fm))
+        nb = nbytes(e, ck, ik, *[t for g in geo for t in g])
+        # a pos2 element: 12 roundings and 2 divisions; a pos1 tap: 2
+        flops = sum(14 * p2.numel() + 2 * p1.numel() for p1, p2, _ in geo)
+        b_ms, by = least_time(nb, flops)
+
+        def kernel():
+            for _ in range(reps):
+                lift_geometry_cuda(e, *geo_args(fm))
+
+        prof = device_profile(kernel, {"geometry": ["lift_geometry_kernel"]})
+        if prof["geometry_n"] != reps:
+            raise RuntimeError(f"profiled {prof['geometry_n']} geometry "
+                               f"kernels of {reps} calls")
+        k = prof["geometry_ms"] / reps
+        plain = device_profile(lambda: lift_geometry_plain(e, *geo_args(fm)))
+        wall_k, wall_p = in_turns(
+            torch, lambda: lift_geometry_cuda(e, *geo_args(fm)),
+            lambda: lift_geometry_plain(e, *geo_args(fm)), reps)
+        ops = sum(plain["n_by_name"].values())
+        log(f"  lift geometry B={B}: kernel {k:.4f} ms on the card (1 "
+            f"launch); plain {plain['busy_ms']:.4f} ms busy in a "
+            f"{plain['span_ms']:.4f} ms span ({ops} device operations); a "
+            f"call back to back {wall_k:.4f} / "
+            f"{wall_p:.4f} ms; {nb / 1e6:.1f} MB written; bound {b_ms:.4f} ms "
+            f"({by}), kernel at {b_ms / k:.1%} of it")
+        key = "" if B == 1 else "_b4"
+        results["lift_geometry"].update({
+            f"ms{key}": k, f"plain_ms{key}": plain["busy_ms"],
+            f"call_ms{key}": wall_k, f"plain_call_ms{key}": wall_p,
+            f"bound_ms{key}": b_ms})
+    results["lift_geometry"].update(bound_by=by, library_ms=None,
+                                    max_abs_err=0.0)
+
+    # one full-width lift: no synchronising call on the kernel path; the
+    # plain geometry synchronises at its z-anchor upload
+    Z = fm.encoder.num_points_in_pillar
+    feats = [torch.randn(1, fm.num_cams, h, w, fm.embed_dims,
+                         device=dev).to(torch.bfloat16)
+             for h, w in feature_levels(fm)]
+    e = torch.from_numpy(ring_rig(fm, 1)).to(dev)
+    lift = (feats, e, fm.pc_range, Z, (fm.bev_h, fm.bev_w),
+            (fm.img_h, fm.img_w))
+    planar_lift.lift_and_average(*lift)
+    torch.cuda.synchronize()
+    GEOMETRY.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planar_lift.lift_and_average(*lift)
+        try:
+            planar_lift.lift_and_average(*lift, impl="plain")
+            plain = "raised nothing"
+        except RuntimeError as err:
+            plain = f"raised: {str(err).splitlines()[0]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = GEOMETRY.launches
+    with spans() as rec:
+        with span("smoke.lift"):
+            planar_lift.lift_and_average(*lift)
+    counted = sum(it["counters"].get("lift.geometry_kernel", 0)
+                  for it in rec.summary())
+    log(f"  full-width lift_and_average under sync debug mode \"error\": "
+        f"the kernel path raised nothing ({launched} geometry launch); the "
+        f"plain path {plain}; counter lift.geometry_kernel {counted:.0f} in "
+        f"one traced call")
+    if launched != 1 or counted != 1:
+        raise RuntimeError("the lift did not go through the geometry kernel "
+                           "once")
 
 
 def phase_kernels(torch, cfg, results):
@@ -576,7 +743,7 @@ def phase_kernels(torch, cfg, results):
     # time: the four level kernels on precomputed geometry, B = 1
     f1 = draw_feats(m, 1, levels)
     e2i = torch.from_numpy(ring_rig(m, 1)).to(dev)
-    geo, inv = lift_geometry(torch, m, e2i, levels)
+    geo, inv = lift_geometry(m, e2i, levels)
     args = [(f, *g) for f, g in zip(f1, geo)]
     out = torch.empty(1, len(levels), ZR, m.bev_w, C, dtype=torch.bfloat16,
                       device=dev)
@@ -731,7 +898,7 @@ def phase_kernels_bwd(torch, cfg, results):
     out = {}
     for B in (1, 2):
         e2i = torch.from_numpy(ring_rig(m, B, yaw_step=0.1)).to(dev)
-        geo, inv = lift_geometry(torch, m, e2i, levels)
+        geo, inv = lift_geometry(m, e2i, levels)
         gs = [torch.randn(B, ZR, m.bev_w, C, generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in levels]
         idx = [lift_bwd_index(p1, p2, st, hw)
@@ -772,8 +939,7 @@ def phase_kernels_bwd(torch, cfg, results):
     # B=2 against two B=1 calls on the same samples (the r5 hazard)
     e2i, geo, inv, gs, idx = out[2]
     for b in (0, 1):
-        geo1, inv1 = lift_geometry(torch, m, e2i[b:b + 1].contiguous(),
-                                   levels)
+        geo1, inv1 = lift_geometry(m, e2i[b:b + 1].contiguous(), levels)
         for (h, w), (p1, p2, st), g, ix, (q1, q2, qt) in zip(
                 levels, geo, gs, idx, geo1):
             d2 = lift_level_bwd_cuda(g, p1, p2, st, inv, (h, w),
@@ -792,7 +958,7 @@ def phase_kernels_bwd(torch, cfg, results):
     m16 = dataclasses.replace(m, encoder=dataclasses.replace(
         m.encoder, num_points_in_pillar=16))
     tiles = [(29, 50), (15, 25)]
-    geo16, inv16 = lift_geometry(torch, m16, out[1][0], tiles)
+    geo16, inv16 = lift_geometry(m16, out[1][0], tiles)
     gen16 = torch.Generator(device=dev).manual_seed(16)
     for (h, w), (p1, p2, st) in zip(tiles, geo16):
         g = torch.randn(1, p2.shape[2], m.bev_w, C, generator=gen16,
@@ -1075,6 +1241,7 @@ def phase_serve(torch, cfg, results):
     from occnet_tpu_torch.convert import (from_jax_variables,
                                           init_jax_style_variables)
     from occnet_tpu_torch.ops.lift_cuda import LIFT
+    from occnet_tpu_torch.ops.planar_lift import GEOMETRY
     from occnet_tpu_torch.ops.tsa import TAP
     from occnet_tpu_torch.serve import Predictor
     from occnet_tpu_torch.tools.profile_turbo import device_profile
@@ -1091,7 +1258,7 @@ def phase_serve(torch, cfg, results):
     pred(reqs[0], e2i)                       # warm-up (cuDNN autotune etc.)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    LIFT.launches = TAP.launches = 0
+    LIFT.launches = TAP.launches = GEOMETRY.launches = 0
     lat = []
     for imgs in reqs[1:]:
         t = time.perf_counter()
@@ -1103,9 +1270,11 @@ def phase_serve(torch, cfg, results):
             raise RuntimeError(f"bad output shapes {occ.shape} {flow.shape}")
         if not (torch.isfinite(logits).all() and torch.isfinite(flow).all()):
             raise RuntimeError("non-finite logits or flow")
-    launches = {"lift": LIFT.launches, "tap": TAP.launches}
+    launches = {"lift": LIFT.launches, "tap": TAP.launches,
+                "lift_geometry": GEOMETRY.launches}
     want = {"lift": m.num_feature_levels * REQUESTS,
-            "tap": m.encoder.num_layers * REQUESTS}
+            "tap": m.encoder.num_layers * REQUESTS,
+            "lift_geometry": REQUESTS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  {REQUESTS} requests: latency ms {[round(x, 3) for x in lat]}, "
         f"mean {sum(lat) / len(lat):.3f}; peak allocated {peak:.3f} GiB; "
@@ -5615,7 +5784,7 @@ def phase_qshard_kernels(torch, results):
                          ).to(torch.bfloat16) for h, w in levels]
     worst_bwd = 0.0
     for r0 in range(0, m.bev_h, rows):
-        geo, inv = lift_geometry(torch, m, e2i, levels, (r0, r0 + rows))
+        geo, inv = lift_geometry(m, e2i, levels, (r0, r0 + rows))
         ZR = geo[0][1].shape[2]
         for (h, w), (p1, p2, st), f in zip(levels, geo, feats):
             uk = torch.empty(1, ZR, m.bev_w, C, dtype=torch.bfloat16,
@@ -5775,7 +5944,7 @@ def main():
             log("    " + line.strip())
 
     cfg = turbo_occ()
-    results = {"lift": {}, "tap": {}}
+    results = {"lift": {}, "tap": {}, "lift_geometry": {}}
     log("[3 kernels] kernel vs plain at main-path shapes")
     phase_kernels(torch, cfg, results)
     log("[4 parity] same weights, card vs CPU (tiny_turbo_occ, fp32)")
@@ -5946,6 +6115,11 @@ def main():
             log(f"  phase {n}: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("[43 lift geometry] the geometry kernel vs plain, bitwise, on the "
+        "ring, overlapping and random rigs; timed; no synchronising call")
+    t = time.perf_counter()
+    phase_lift_geometry(torch, results)
+    log(f"  phase 43: {time.perf_counter() - t:.1f} s")
 
     kernels = [
         dict(name="lift", route="cuda",
@@ -5956,6 +6130,17 @@ def main():
                     "shared memory, then gathers them in batches; bitwise "
                     "equal to its plain version",
              **results["lift"]),
+        dict(name="lift_geometry", route="cuda",
+             source="occnet_tpu_torch/csrc/lift_geometry.cu",
+             replaces="none: XLA-fused glue (occnet_tpu/ops/lift_pallas.py:"
+                      "618, occnet_tpu/ops/planar_lift.py:40,298)",
+             design="a block per (level, sample, BEV row): a thread a "
+                    "(camera, z-anchor) plane builds its homography and "
+                    "image line in shared memory, then coalesced stores of "
+                    "the row's pos2 and pos1; level 0 counts the cameras "
+                    "by marks in shared memory; bitwise equal to its plain "
+                    "version",
+             **results["lift_geometry"]),
         dict(name="tap", route="cuda",
              source="occnet_tpu_torch/csrc/tap.cu",
              replaces="occnet_tpu/ops/tsa_pallas.py:88",

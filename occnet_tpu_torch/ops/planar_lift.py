@@ -8,21 +8,28 @@ factors into two 1D linear resamples: along the image line of each BEV row
 image line is steeper than 45 degrees resample in the other order (y first).
 
 The geometry here is plain fp32 PyTorch, op for op the JAX package's
-(`lift_pallas._plane_positions`, `planar_lift.warp_level_multi_z`); the
-sampling itself is `lift_cuda.lift_level` (CUDA kernel or plain version), and
-its gradient `lift_cuda.lift_level_bwd`, tied together by `_LiftAverage`.
+(`lift_pallas._plane_positions`, `planar_lift.warp_level_multi_z`), and, on
+CUDA tensors, one launch of `csrc/lift_geometry.cu` that is bitwise equal to
+it (`lift_geometry_cuda`, fed by its launch arguments alone); the sampling
+itself is `lift_cuda.lift_level` (CUDA kernel or plain version), and its
+gradient `lift_cuda.lift_level_bwd`, tied together by `_LiftAverage`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from occnet_tpu_torch.ops._build import F32, I32, P, Kernel
 from occnet_tpu_torch.ops.lift_cuda import (_resolve, lift_bwd_index,
                                             lift_level, lift_level_bwd)
+from occnet_tpu_torch.utils import profiling
 from occnet_tpu_torch.utils.profiling import span
+
+EPS = 1e-4            # a homogeneous w at or below it is behind the camera
 
 
 def z_anchors(pc_range: Sequence[float], num_z: int) -> np.ndarray:
@@ -35,12 +42,10 @@ def z_anchors(pc_range: Sequence[float], num_z: int) -> np.ndarray:
     return z_norm * np.float32(z_extent) + np.float32(pc_range[2])
 
 
-def plane_homographies(ego2img: torch.Tensor, pc_range: Sequence[float],
-                       z: torch.Tensor, bev_hw: Tuple[int, int]
-                       ) -> torch.Tensor:
-    """3x3 homographies M with (u, v, w)^T = M @ (ix, iy, 1)^T mapping BEV
-    cell indices (cell centres at integer ix, iy) to image pixel coords.
-    ego2img (..., 4, 4) fp32, z (Z,) -> (..., Z, 3, 3)."""
+def grid_constants(pc_range: Sequence[float], bev_hw: Tuple[int, int]
+                   ) -> Tuple[float, float, float, float]:
+    """(dx, dy, x0, y0): the BEV cell size and the centre of cell (0, 0) in
+    metres, float32 values as Python floats."""
     bev_h, bev_w = bev_hw
     # grid constants in float32 on the host with true division: CUDA's
     # division by a scalar multiplies by its reciprocal, which rounds
@@ -51,7 +56,16 @@ def plane_homographies(ego2img: torch.Tensor, pc_range: Sequence[float],
     dy = (pc[4] - pc[1]) / np.float32(bev_h)
     x0 = float(pc[0] + np.float32(0.5) * dx)
     y0 = float(pc[1] + np.float32(0.5) * dy)
-    dx, dy = float(dx), float(dy)
+    return float(dx), float(dy), x0, y0
+
+
+def plane_homographies(ego2img: torch.Tensor, pc_range: Sequence[float],
+                       z: torch.Tensor, bev_hw: Tuple[int, int]
+                       ) -> torch.Tensor:
+    """3x3 homographies M with (u, v, w)^T = M @ (ix, iy, 1)^T mapping BEV
+    cell indices (cell centres at integer ix, iy) to image pixel coords.
+    ego2img (..., 4, 4) fp32, z (Z,) -> (..., Z, 3, 3)."""
+    dx, dy, x0, y0 = grid_constants(pc_range, bev_hw)
     E = ego2img[..., :3, :]                                   # (..., 3, 4)
     col_x = E[..., 0] * dx
     col_y = E[..., 1] * dy
@@ -81,7 +95,7 @@ def feature_homographies(H: torch.Tensor, h: int, w: int,
 
 
 def level_geometry(Ml: torch.Tensor, bev_hw: Tuple[int, int], h: int, w: int,
-                   eps: float = 1e-4,
+                   eps: float = EPS,
                    rows: Optional[Tuple[int, int]] = None):
     """Sampling positions of one feature level.  Ml (B, A, Z, 3, 3)
     BEV-cell -> feature-pixel homographies; ``rows`` = (r0, r1) restricts
@@ -154,6 +168,130 @@ def level_geometry(Ml: torch.Tensor, bev_hw: Tuple[int, int], h: int, w: int,
             steep.reshape(B, A, Z * bev_h).contiguous(), valid)
 
 
+Geometry = Tuple[List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+                 torch.Tensor, torch.Tensor]
+
+
+def lift_geometry_plain(ego2img: torch.Tensor, pc_range: Sequence[float],
+                        num_z: int, bev_hw: Tuple[int, int],
+                        img_hw: Tuple[int, int],
+                        level_hw: Sequence[Tuple[int, int]],
+                        rows: Optional[Tuple[int, int]] = None) -> Geometry:
+    """The lift's geometry in plain PyTorch: ([(pos1, pos2, steep)] a level
+    of `level_geometry`, for the feature sizes ``level_hw``; count (B, Q),
+    the cameras that see a query's cell at any z-anchor at level 0, clamped
+    to >= 1; inv_count = 1 / count), over the BEV rows ``rows``."""
+    dev = ego2img.device
+    B = ego2img.shape[0]
+    z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
+    H = plane_homographies(ego2img.float(), pc_range, z, bev_hw)
+    geoms = []
+    count = inv_count = None
+    for lvl, (h, w) in enumerate(level_hw):
+        Ml = feature_homographies(H, h, w, img_hw)
+        pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w,
+                                                  rows=rows)
+        if lvl == 0:
+            count = valid.any(dim=2).sum(dim=1).to(torch.float32)
+            count = count.clamp(min=1.0).reshape(B, -1)
+            inv_count = 1.0 / count
+        geoms.append((pos1, pos2, steep))
+    return geoms, count, inv_count
+
+
+GEOMETRY = Kernel("occ_lift_geometry", [P, I32, P])
+_MAX_LEVELS = 8       # csrc/lift_geometry.cu kMaxLevels
+_MAX_Z = 256          # csrc/lift_geometry.cu kMaxZ
+
+
+class _GeomArgs(ctypes.Structure):
+    """The launch arguments of `csrc/lift_geometry.cu` (its `GeomArgs`,
+    field for field)."""
+    _fields_ = [("ego2img", P), ("pos1", P * _MAX_LEVELS),
+                ("pos2", P * _MAX_LEVELS), ("steep", P * _MAX_LEVELS),
+                ("count", P), ("inv_count", P),
+                ("B", I32), ("A", I32), ("Z", I32), ("R", I32), ("r0", I32),
+                ("M", I32), ("levels", I32),
+                ("h", I32 * _MAX_LEVELS), ("w", I32 * _MAX_LEVELS),
+                ("sx", F32 * _MAX_LEVELS), ("sy", F32 * _MAX_LEVELS),
+                ("dx", F32), ("dy", F32), ("x0", F32), ("y0", F32),
+                ("eps", F32), ("z", F32 * _MAX_Z)]
+
+
+def geometry_args(pc_range: Sequence[float], num_z: int,
+                  bev_hw: Tuple[int, int], img_hw: Tuple[int, int],
+                  level_hw: Sequence[Tuple[int, int]],
+                  rows: Optional[Tuple[int, int]] = None) -> _GeomArgs:
+    """The host-side constants of the geometry kernel, each the float32
+    value the plain version computes with: the z-anchors, `grid_constants`,
+    each level's sx = fp32(w / img_w) and sy = fp32(h / img_h) (torch's
+    rounding of the Python quotient), `EPS`, the rows and the BEV width.
+    Pointers and the batch are left to `lift_geometry_cuda`."""
+    bev_h, bev_w = bev_hw
+    img_h, img_w = img_hw
+    r0, r1 = (0, bev_h) if rows is None else rows
+    if not 0 <= r0 < r1 <= bev_h:
+        raise ValueError(f"lift geometry: rows {rows} outside [0, {bev_h})")
+    if not 1 <= len(level_hw) <= _MAX_LEVELS or not 1 <= num_z <= _MAX_Z:
+        raise ValueError(f"lift geometry kernel: 1-{_MAX_LEVELS} levels and "
+                         f"1-{_MAX_Z} z-anchors, got {len(level_hw)} and "
+                         f"{num_z}")
+    g = _GeomArgs()
+    g.Z, g.R, g.r0, g.M, g.levels = num_z, r1 - r0, r0, bev_w, len(level_hw)
+    for lvl, (h, w) in enumerate(level_hw):
+        g.h[lvl], g.w[lvl] = h, w
+        g.sx[lvl], g.sy[lvl] = w / img_w, h / img_h
+    g.dx, g.dy, g.x0, g.y0 = grid_constants(pc_range, bev_hw)
+    g.eps = EPS
+    g.z[:num_z] = z_anchors(pc_range, num_z).tolist()
+    return g
+
+
+def lift_geometry_cuda(ego2img: torch.Tensor, pc_range: Sequence[float],
+                       num_z: int, bev_hw: Tuple[int, int],
+                       img_hw: Tuple[int, int],
+                       level_hw: Sequence[Tuple[int, int]],
+                       rows: Optional[Tuple[int, int]] = None) -> Geometry:
+    """`lift_geometry_plain` as one launch of `csrc/lift_geometry.cu`,
+    bitwise equal to it.  ego2img (B, A, 4, 4) contiguous float32 on a CUDA
+    device; the outputs are allocated here and nothing else crosses from
+    the host: no upload, no read-back, no synchronise.  Counts the launch
+    in the counter ``lift.geometry_kernel``."""
+    g = geometry_args(pc_range, num_z, bev_hw, img_hw, level_hw, rows)
+    if ego2img.dtype != torch.float32 or ego2img.dim() != 4 \
+            or tuple(ego2img.shape[2:]) != (4, 4) \
+            or not ego2img.is_contiguous():
+        raise ValueError(f"lift geometry kernel: ego2img must be contiguous "
+                         f"float32 (B, A, 4, 4), got {ego2img.dtype} "
+                         f"{tuple(ego2img.shape)}")
+    dev = ego2img.device
+    if dev.type != "cuda":
+        raise ValueError(f"lift geometry kernel: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    B, A = ego2img.shape[:2]
+    g.B, g.A = B, A
+    g.ego2img = ego2img.data_ptr()
+    ZR, M = num_z * g.R, g.M
+    geoms = []
+    for lvl, (h, w) in enumerate(level_hw):
+        # in the plain version's order: the caching allocator's layout, and
+        # so the peak memory of a step, follows the order of allocations
+        pos1 = torch.empty(B, A, ZR, w + h, dtype=torch.float32, device=dev)
+        pos2 = torch.empty(B, A, ZR, M, dtype=torch.float32, device=dev)
+        steep = torch.empty(B, A, ZR, dtype=torch.bool, device=dev)
+        g.pos1[lvl], g.pos2[lvl] = pos1.data_ptr(), pos2.data_ptr()
+        g.steep[lvl] = steep.data_ptr()
+        geoms.append((pos1, pos2, steep))
+        if lvl == 0:
+            count = torch.empty(B, g.R * M, dtype=torch.float32, device=dev)
+            inv_count = torch.empty_like(count)
+            g.count, g.inv_count = count.data_ptr(), inv_count.data_ptr()
+    GEOMETRY(ctypes.byref(g), ctypes.sizeof(g),
+             torch.cuda.current_stream(dev).cuda_stream)
+    profiling.count("lift.geometry_kernel", 1)
+    return geoms, count, inv_count
+
+
 class _LiftAverage(torch.autograd.Function):
     """The per-level lift loop with its transpose as the backward (the
     counterpart of `lift_pallas.lift_level`'s custom VJP).  It allocates and
@@ -217,28 +355,26 @@ def lift_and_average(
     bit for bit: a BEV-query shard's, as the JAX package shards the lift's
     Q axis).  Differentiable in the features (bf16 gradient, as in the JAX
     package).  The homographies, the level geometry and the count are the
-    span ``encoder.geometry``."""
-    dev = ego2img.device
+    span ``encoder.geometry``: `lift_geometry_cuda` (one launch) for CUDA
+    tensors under "auto" or "cuda", `lift_geometry_plain` for CPU tensors
+    or under "plain"; never one for the other."""
     bev_h, bev_w = bev_hw
     r0, r1 = (0, bev_h) if rows is None else rows
     Q = (r1 - r0) * bev_w
     B = ego2img.shape[0]
     C = mlvl_feats[0].shape[-1]
+    level_hw = [tuple(f.shape[2:4]) for f in mlvl_feats]
     with span("encoder.geometry"):
-        z = torch.from_numpy(z_anchors(pc_range, num_z)).to(dev)
-        H = plane_homographies(ego2img.float(), pc_range, z, bev_hw)
-        geoms = []
-        count = inv_count = None
-        for lvl, feat in enumerate(mlvl_feats):
-            h, w = feat.shape[2], feat.shape[3]
-            Ml = feature_homographies(H, h, w, img_hw)
-            pos1, pos2, steep, valid = level_geometry(Ml, bev_hw, h, w,
-                                                      rows=(r0, r1))
-            if lvl == 0:
-                count = valid.any(dim=2).sum(dim=1).to(torch.float32)
-                count = count.clamp(min=1.0).reshape(B, Q)
-                inv_count = 1.0 / count
-            geoms.append((pos1, pos2, steep))
+        how = _resolve(impl, ego2img)
+        if how == "cuda":
+            geometry = lift_geometry_cuda
+        elif how == "plain":
+            geometry = lift_geometry_plain
+        else:
+            raise ValueError(f"unknown lift impl {impl!r}")
+        geoms, count, inv_count = geometry(ego2img.float().contiguous(),
+                                           pc_range, num_z, bev_hw, img_hw,
+                                           level_hw, (r0, r1))
     U_bar = _LiftAverage.apply(
         geoms, inv_count, (B, len(mlvl_feats), num_z, Q, C), out_dtype, impl,
         *[f.to(torch.bfloat16).contiguous() for f in mlvl_feats])

@@ -357,12 +357,9 @@ def _gather_through_index(g, pos2, inv_count, index, hw):
 
 
 def _level_geometry(e2i, h, w, bev_hw=(14, 14), num_z=4):
-    z = torch.from_numpy(planar_lift.z_anchors(PC_RANGE, num_z))
-    H = planar_lift.plane_homographies(e2i, PC_RANGE, z, bev_hw)
-    Ml = planar_lift.feature_homographies(H, h, w, IMG_HW)
-    pos1, pos2, steep, valid = planar_lift.level_geometry(Ml, bev_hw, h, w)
-    count = valid.any(dim=2).sum(dim=1).float().clamp(min=1.0)
-    return pos1, pos2, steep, (1.0 / count).reshape(e2i.shape[0], -1)
+    (geo,), _, inv = planar_lift.lift_geometry_plain(
+        e2i, PC_RANGE, num_z, bev_hw, IMG_HW, [(h, w)])
+    return (*geo, inv)
 
 
 @pytest.mark.parametrize("stride", [4, 8, 16, 32])
@@ -421,6 +418,96 @@ def test_lift_bwd_index_raises_when_a_run_is_not_monotone():
     bad[0, a, zr, m + 1] = -2.0
     with pytest.raises(ValueError, match="not one monotone run"):
         lift_bwd_index(pos1, bad, steep, (16, 24))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("name", ["turbo_occ", "tiny_turbo_occ"])
+def test_geometry_kernel_arguments_are_the_plain_constants(name):
+    """The launch arguments of the geometry kernel, packed on the host,
+    hold bit for bit the float32 constants the plain geometry computes
+    with: the z-anchors, the cell size and first cell centre (read off
+    `plane_homographies` of an identity ego2img: H[i, 0] = E[i, 0] * dx,
+    H[i, 1] = E[i, 1] * dy, H[i, 2] = E[i] . (x0, y0, z, 1)), each level's
+    sx and sy (off `feature_homographies` of an identity H: row 0 = (sx, 0,
+    -0.5), row 1 = (0, sy, -0.5)) and the in-front threshold."""
+    from occnet_tpu_torch import config
+    m = getattr(config, name)().model
+    Z = m.encoder.num_points_in_pillar
+    levels = [(-(-m.img_h // s), -(-m.img_w // s)) for s in (8, 16, 32, 64)]
+    g = planar_lift.geometry_args(m.pc_range, Z, (m.bev_h, m.bev_w),
+                                  (m.img_h, m.img_w), levels, rows=(1, 3))
+    assert (g.Z, g.R, g.r0, g.M, g.levels) == (Z, 2, 1, m.bev_w, 4)
+    z = torch.from_numpy(planar_lift.z_anchors(m.pc_range, Z))
+    H = planar_lift.plane_homographies(torch.eye(4)[None], m.pc_range, z,
+                                       (m.bev_h, m.bev_w))[0].numpy()
+    np.testing.assert_array_equal(_bits(g.z[:Z]), _bits(z.numpy()))
+    np.testing.assert_array_equal(_bits(g.z[:Z]), _bits(H[:, 2, 2]))
+    for field, want in (("dx", H[:, 0, 0]), ("dy", H[:, 1, 1]),
+                        ("x0", H[:, 0, 2]), ("y0", H[:, 1, 2])):
+        np.testing.assert_array_equal(
+            _bits(np.full(Z, getattr(g, field), np.float32)), _bits(want))
+    for lvl, (h, w) in enumerate(levels):
+        Ml = planar_lift.feature_homographies(torch.eye(3), h, w,
+                                              (m.img_h, m.img_w)).numpy()
+        assert (g.h[lvl], g.w[lvl]) == (h, w)
+        assert _bits(g.sx[lvl]) == _bits(Ml[0, 0])
+        assert _bits(g.sy[lvl]) == _bits(Ml[1, 1])
+        np.testing.assert_array_equal(Ml[:2, 2], [-0.5, -0.5])
+    assert _bits(g.eps) == _bits(planar_lift.EPS)
+    assert planar_lift.EPS == 1e-4
+
+
+def test_lift_geometry_on_cpu_tensors_is_the_plain_version():
+    """"auto" on CPU tensors takes the plain geometry (no kernel launch, no
+    `lift.geometry_kernel` count), equal to "plain"; "cuda" raises rather
+    than falling back."""
+    from occnet_tpu_torch.utils import profiling
+    rng = np.random.RandomState(5)
+    feats = [torch.from_numpy(f) for f in _feats(rng)]
+    e2i = torch.from_numpy(_ring_cameras())
+    args = (feats, e2i, PC_RANGE, 4, (14, 14), IMG_HW)
+    launches = planar_lift.GEOMETRY.launches
+    with profiling.spans() as rec:
+        with profiling.span("request"):
+            u, c = planar_lift.lift_and_average(*args)
+    up, cp = planar_lift.lift_and_average(*args, impl="plain")
+    assert torch.equal(u, up) and torch.equal(c, cp)
+    assert planar_lift.GEOMETRY.launches == launches
+    assert all("lift.geometry_kernel" not in it["counters"]
+               for it in rec.summary())
+    with pytest.raises(ValueError, match="on a CUDA device"):
+        planar_lift.lift_and_average(*args, impl="cuda")
+    with pytest.raises(ValueError, match="unknown lift impl"):
+        planar_lift.lift_and_average(*args, impl="triton")
+
+
+@pytest.mark.parametrize("bad", ["float64", "3x4", "strided", "rows",
+                                 "levels", "z"])
+def test_lift_geometry_kernel_refuses_what_it_does_not_take(bad):
+    """The kernel's wrapper checks its input before any launch: ego2img
+    contiguous float32 (B, A, 4, 4), rows inside the grid, at most 8 levels
+    and 256 z-anchors."""
+    e2i = torch.from_numpy(_ring_cameras(batch=2))
+    levels, rows, Z = [(8, 12), (4, 6)], None, 4
+    if bad == "float64":
+        e2i = e2i.double()
+    elif bad == "3x4":
+        e2i = e2i[:, :, :3].contiguous()
+    elif bad == "strided":
+        e2i = e2i.transpose(0, 1)
+    elif bad == "rows":
+        rows = (10, 15)
+    elif bad == "levels":
+        levels = levels * 5
+    else:
+        Z = 257
+    match = {"rows": "rows", "levels": "levels"}.get(bad, "ego2img")
+    with pytest.raises(ValueError, match=match if bad != "z" else "z-anch"):
+        planar_lift.lift_geometry_cuda(e2i, PC_RANGE, Z, (14, 14), IMG_HW,
+                                       levels, rows)
 
 
 def test_bench_edits_match_the_kernel_sources():
